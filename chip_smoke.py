@@ -1,0 +1,531 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout.  Phases, in order; any failed check ends
+the run with a non-zero exit and no result line:
+
+1. build   — compile every CUDA kernel of the port from ``src/repro_torch/
+             csrc/`` (one ``nvcc`` per source, all at once).
+2. kernels — hold each kernel against its plain PyTorch version on the card
+             in bf16 at the serving path's shapes, and time kernel, plain
+             version and a PyTorch yardstick (``library_ms``, never used by
+             the port) against the card's bound.
+3. serve   — qwen3-0.6b at full width (random weights from a seed) served by
+             the port's ``InferenceEngine``: 16 requests with follow-up
+             turns and a shared system prompt (timed), a third wave of 8
+             requests of which 10 steps run under ``torch.profiler``, one
+             ``warm_session`` replay and one request on a
+             ``prefill_chunk=0`` engine.  Both kernels' launch counters are
+             set to 0 before this phase and read after it.
+4. check   — first-step next-token logits of two short prompts on the card
+             (bf16) against the same weights run on the CPU in float32.
+
+The last lines are the kernel table as JSON, the card's name and power
+limit (``nvidia-smi``), and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 flop/s
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+# kernel vs plain version in bf16: both round the output to bf16 once (and
+# the flash kernel rounds its probabilities to bf16 before P.V, the plain
+# version its normalised ones), so they agree to about one bf16 ulp:
+# relative 2^-7 < 1e-2, plus an absolute floor for outputs near zero
+KERNEL_TOL = dict(rtol=1e-2, atol=1e-2)
+# card bf16 vs CPU float32 logits through 28 layers: bf16 rounds every
+# activation (relative 2^-9), compounding over ~10 roundings per layer
+LOGITS_REL_L2_TOL = 5e-2
+
+
+class Failed(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise Failed(msg)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------------ timing
+class Timer:
+    """Median device time of one call, with the 50 MB L2 flushed before
+    each launch (the serving path meets every layer's pages cold)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush_buf = torch.empty(64 << 20, dtype=torch.uint8,
+                                     device="cuda")
+
+    def ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+        for s, e in zip(starts, ends):
+            self.flush_buf.zero_()
+            s.record()
+            fn()
+            e.record()
+        torch.cuda.synchronize()
+        return float(np.median([s.elapsed_time(e)
+                                for s, e in zip(starts, ends)]))
+
+
+def bound_ms(n_bytes: float, flops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+# ---------------------------------------------------------- phase 2 inputs
+def paged_inputs(torch, seed, B, T, H, Hkv, D, P, n_pages, maxp, pos_range):
+    """bf16 q and pools on the card; tables drawn as a random permutation
+    of the pool's pages, -1 padded past each row's chunk; ragged pos."""
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    pos = rng.integers(pos_range[0], pos_range[1], B).astype(np.int32)
+    perm = rng.permutation(n_pages)
+    pt = np.full((B, maxp), -1, np.int32)
+    used = 0
+    for b in range(B):
+        need = -(-(int(pos[b]) + T) // P)
+        pt[b, :need] = perm[used:used + need]
+        used += need
+    check(used <= n_pages, "paged case needs more pages than the pool has")
+    return (randn(B, T, H, D), randn(n_pages, P, Hkv, D),
+            randn(n_pages, P, Hkv, D), torch.from_numpy(pt).cuda(),
+            torch.from_numpy(pos).cuda())
+
+
+def paged_cost(pt, pos, T, H, Hkv, D, P):
+    """Bytes the function must move and flops it must do on these inputs:
+    q in, out back, the table and pos, and the K and V of every token a row
+    can see (positions below pos+T whose page is in the table; the unused
+    tail of the last page is not counted); 4*D flops per (query row,
+    visible token)."""
+    pt, pos = pt.cpu().numpy(), pos.cpu().numpy()
+    B = len(pos)
+    n_rep = H // Hkv
+    tokens = visible = 0
+    for b in range(B):
+        n = int(pos[b]) + T
+        present = np.repeat(pt[b] >= 0, P)[:n]
+        tokens += int(present.sum())
+        seen = np.cumsum(present)
+        visible += sum(int(seen[int(pos[b]) + t]) for t in range(T))
+    n_bytes = (2 * B * T * H * D * 2 + pt.nbytes + pos.nbytes
+               + 2 * tokens * Hkv * D * 2)
+    return n_bytes, 4 * D * visible * H
+
+
+def flash_cost(BH, S, D, window):
+    visible = sum(min(i + 1, window or i + 1) for i in range(S))
+    return 4 * BH * S * D * 2, 4 * D * BH * visible
+
+
+# ----------------------------------------------------------------- phases
+def phase_build(_build):
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    wall = time.perf_counter() - t0
+    for name, (secs, log) in built.items():
+        print(f"[build] {name}: {secs:.1f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build]   {line.strip()}")
+    print(f"[build] wall {wall:.1f} s for {sorted(built)} "
+          f"(already built: {sorted(set(_build.SOURCES) - set(built))})")
+
+
+def phase_kernels(torch, timer, paged_ops, paged_ref, flash_ops, flash_ref,
+                  cfg):
+    F = torch.nn.functional
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    n_rep = H // Hkv
+    P, max_seq, max_batch = 64, 1024, 8
+    maxp = max_seq // P
+    n_pages = max_batch * (max_seq // P + 1) * 2      # the engine's default
+    scale = D ** -0.5
+    rows = {}
+
+    # --- paged_decode_chunk: main-path shapes, T in {1, 3, 8}
+    err = 0.0
+    for T in (1, 3, 8):
+        q, kp, vp, pt, pos = paged_inputs(torch, T, max_batch, T, H, Hkv, D,
+                                          P, n_pages, maxp,
+                                          (0, max_seq - T))
+        got = paged_ops.paged_decode_chunk(q, kp, vp, pt, pos, scale=scale,
+                                           n_rep=n_rep)
+        torch.cuda.synchronize()
+        want = paged_ref.paged_decode_chunk_ref(q, kp, vp, pt, pos,
+                                                scale=scale, n_rep=n_rep)
+        e = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), **KERNEL_TOL)
+        print(f"[kernels] paged_decode_chunk T={T} B={max_batch} "
+              f"max_abs_err={e:.3e} tol={KERNEL_TOL} ok={ok}")
+        check(ok and bool(torch.isfinite(got).all()),
+              f"paged_decode_chunk disagrees with its plain version (T={T})")
+        err = max(err, e)
+
+    # timed at two serving shapes: a chunked-prefill step (T=8) and a decode
+    # step (T=1), contexts of the served prompts (32..512 + 32 new tokens)
+    timings = {}
+    for T in (8, 1):
+        q, kp, vp, pt, pos = paged_inputs(torch, 100 + T, max_batch, T, H,
+                                          Hkv, D, P, n_pages, maxp,
+                                          (32, 544))
+        n_bytes, flops = paged_cost(pt, pos, T, H, Hkv, D, P)
+        bound, by = bound_ms(n_bytes, flops)
+        C = maxp * P
+        idx = pt.long().clamp(min=0)
+        qpos = pos.long()[:, None] + torch.arange(T, device="cuda")[None]
+        mask = ((torch.arange(C, device="cuda")[None, None] <= qpos[..., None])
+                & (pt >= 0).repeat_interleave(P, 1)[:, None])[:, None]
+
+        def library():
+            # gather + SDPA: the paged pool gathered densely, GQA expanded
+            kg = kp[idx].reshape(max_batch, C, Hkv, 1, D).expand(
+                max_batch, C, Hkv, n_rep, D).reshape(max_batch, C, H, D)
+            vg = vp[idx].reshape(max_batch, C, Hkv, 1, D).expand(
+                max_batch, C, Hkv, n_rep, D).reshape(max_batch, C, H, D)
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
+                attn_mask=mask, scale=scale)
+
+        t = {"ms": timer.ms(lambda: paged_ops.paged_decode_chunk(
+                 q, kp, vp, pt, pos, scale=scale, n_rep=n_rep)),
+             "plain_ms": timer.ms(lambda: paged_ref.paged_decode_chunk_ref(
+                 q, kp, vp, pt, pos, scale=scale, n_rep=n_rep)),
+             "library_ms": timer.ms(library),
+             "bound_ms": bound, "bound_by": by}
+        timings[T] = t
+        print(f"[kernels] paged_decode_chunk timed B={max_batch} T={T} "
+              f"H={H} Hkv={Hkv} D={D} P={P} ctx={pos.min().item()}.."
+              f"{pos.max().item()}: ms={t['ms']:.4f} plain_ms="
+              f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+              f"bound_ms={bound:.5f} ({by}; {n_bytes} B, {flops} flop)")
+    rows["paged_decode_chunk"] = dict(
+        source="src/repro_torch/csrc/paged_chunk.cu",
+        replaces="src/repro/kernels/paged_attention/paged_attention.py:260",
+        max_abs_err=err, **timings[8])
+
+    # --- flash_attention_bhsd: S in {17, 128, 500} causal, one windowed
+    err = 0.0
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def qkv(S, BH=H):
+        return [torch.randn((BH, S, D), generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(3)]
+
+    for S, window in ((17, None), (128, None), (500, None), (500, 128)):
+        q, k, v = qkv(S)
+        got = flash_ops.flash_attention_bhsd(q, k, v, causal=True,
+                                             window=window, scale=scale)
+        torch.cuda.synchronize()
+        want = flash_ref.flash_attention_bhsd_ref(q, k, v, causal=True,
+                                                  window=window, scale=scale)
+        e = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), **KERNEL_TOL)
+        print(f"[kernels] flash_attention_bhsd S={S} window={window} "
+              f"BH={H} D={D} max_abs_err={e:.3e} tol={KERNEL_TOL} ok={ok}")
+        check(ok and bool(torch.isfinite(got).all()),
+              f"flash_attention_bhsd disagrees with its plain version "
+              f"(S={S}, window={window})")
+        err = max(err, e)
+
+    # timed at the monolithic prefill of a 257..512-token prompt: one
+    # sequence, bucket 512, 16 heads
+    S = 512
+    q, k, v = qkv(S)
+    n_bytes, flops = flash_cost(H, S, D, None)
+    bound, by = bound_ms(n_bytes, flops)
+    q4, k4, v4 = (x[None] for x in (q, k, v))
+    t = {"ms": timer.ms(lambda: flash_ops.flash_attention_bhsd(
+             q, k, v, causal=True, scale=scale)),
+         "plain_ms": timer.ms(lambda: flash_ref.flash_attention_bhsd_ref(
+             q, k, v, causal=True, scale=scale)),
+         "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+             q4, k4, v4, is_causal=True, scale=scale)),
+         "bound_ms": bound, "bound_by": by}
+    print(f"[kernels] flash_attention_bhsd timed BH={H} S={S} D={D} causal: "
+          f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms="
+          f"{t['library_ms']:.4f} bound_ms={bound:.5f} ({by}; {n_bytes} B, "
+          f"{flops} flop)")
+    rows["flash_attention_bhsd"] = dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:87",
+        max_abs_err=err, **t)
+    return rows
+
+
+def serve_trace(vocab):
+    """Two waves of (session, prompt, max_new_tokens): 4 agent sessions
+    that share a 128-token system prompt and come back for a second turn,
+    and 8 single-turn users, half of them on the same system prompt."""
+    rng = np.random.default_rng(0)
+    sys_prompt = rng.integers(0, vocab, 128)
+
+    def toks(lo, hi):
+        return rng.integers(0, vocab, int(rng.integers(lo, hi + 1)))
+
+    wave1 = [(f"agent{i}", np.concatenate([sys_prompt, toks(32, 384)]))
+             for i in range(4)]
+    wave1 += [(f"user{i}", toks(32, 512)) for i in range(4)]
+    wave2 = [(f"agent{i}", toks(32, 96)) for i in range(4)]
+    wave2 += [(f"user{i}", np.concatenate([sys_prompt, toks(32, 384)]))
+              for i in range(4, 8)]
+    return [wave1, wave2]
+
+
+def profile_window(torch, engine, cfg, Request, sampling, n_warm=4,
+                   n_steps=10):
+    """A third wave of 8 fresh requests; ``n_steps`` engine steps of it run
+    under ``torch.profiler``: the device's busy share of the window and
+    the kernels that fill it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(4)
+    reqs = [Request.make(rng.integers(0, cfg.vocab_size,
+                                      int(rng.integers(64, 257))),
+                         session_id=f"prof{i}", sampling=sampling)
+            for i in range(8)]
+    for r in reqs:
+        engine.submit(r)
+    for _ in range(n_warm):
+        engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    engine.run_until_idle()
+    check(all(r.finished for r in reqs), "a profiled request did not finish")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not kernels:
+        print("[profile] the trace holds no device events: busy share not "
+              "measured")
+        return
+    print(f"[profile] {n_steps} steps in {wall_ms:.1f} ms host wall; device "
+          f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %), idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f} %; "
+          f"{sum(e.count for e in kernels) / n_steps:.0f} kernel launches "
+          f"per step")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+
+
+def phase_serve(torch, rt, cfg, counters):
+    from repro_torch.serving import Request, SamplingParams
+
+    t0 = time.perf_counter()
+    model = rt.build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    engine = rt.InferenceEngine(model, params, max_batch=8, max_seq=1024,
+                                page_size=64, prefill_chunk=8)
+    torch.cuda.synchronize()
+    print(f"[serve] {cfg.arch_id}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
+          f"{cfg.head_dim_}, vocab {cfg.vocab_size}, {cfg.param_count()} "
+          f"params in {cfg.dtype}; set up in {time.perf_counter() - t0:.1f} s")
+
+    for c in counters:
+        c.launches = 0
+    greedy = SamplingParams(max_new_tokens=32)
+    reqs, step_ms = [], []
+    t_serve = time.perf_counter()
+    for wave in serve_trace(cfg.vocab_size):
+        for sid, prompt in wave:
+            req = Request.make(prompt, session_id=sid, sampling=greedy)
+            engine.submit(req)
+            reqs.append(req)
+        while True:
+            t = time.perf_counter()
+            n = engine.step()
+            if n == 0 and len(engine.queue) == 0:
+                break
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    serve_s = time.perf_counter() - t_serve
+    m = engine.metrics
+    paged_after_serve = counters[0].launches
+    served = dict(decode_steps=m.decode_steps, tokens=m.tokens_generated,
+                  prefill_tokens=m.prefill_tokens)
+    profile_window(torch, engine, cfg, Request, SamplingParams(
+        max_new_tokens=16))
+    flash_before = counters[1].launches
+
+    warm_toks = np.random.default_rng(1).integers(0, cfg.vocab_size, 300)
+    t = time.perf_counter()
+    warmed = engine.warm_session("replay0", [int(x) for x in warm_toks])
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t) * 1e3
+    flash_warm = counters[1].launches - flash_before
+
+    mono = rt.InferenceEngine(model, params, max_batch=8, max_seq=1024,
+                              page_size=64, prefill_chunk=0)
+    t = time.perf_counter()
+    mono_toks = np.random.default_rng(3).integers(0, cfg.vocab_size, 257)
+    mono_req = mono.generate(mono_toks, session_id="mono0", sampling=greedy)
+    mono_s = time.perf_counter() - t
+    launches = {c.__name__: c.launches for c in counters}
+
+    check(all(r.finished and len(r.generated) == 32 for r in reqs),
+          "not every request finished with 32 tokens")
+    check(mono_req.finished and len(mono_req.generated) == 32,
+          "the prefill_chunk=0 request did not finish")
+    check(warmed == 300 and flash_warm > 0,
+          f"warm_session replayed {warmed} tokens with {flash_warm} flash "
+          f"launches")
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the path never launched: {launches}")
+    check(m.prefix_hits >= 4 and m.shared_prefix_hits >= 4,
+          f"resume / prefix sharing did not fire: {m}")
+    check(m.completed == len(reqs) + 8 and m.paged_append_failures == 0,
+          f"engine metrics: {m}")
+    engine.pool.check_invariants()
+    mono.pool.check_invariants()
+    vocab_ok = all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated)
+    check(vocab_ok, "a generated token is outside the vocabulary")
+
+    gen, steps = served["tokens"], served["decode_steps"]
+    print(f"[serve] {len(reqs)} requests, {gen} tokens generated in "
+          f"{serve_s:.2f} s: {gen / serve_s:.1f} generated tok/s, "
+          f"{(served['prefill_tokens'] + gen) / serve_s:.1f} processed tok/s;"
+          f" {steps} steps, step ms p50 {np.percentile(step_ms, 50):.2f} p99 "
+          f"{np.percentile(step_ms, 99):.2f} max {max(step_ms):.2f}")
+    print(f"[serve] metrics after the profiled wave: prefills={m.prefills} "
+          f"prefill_tokens={m.prefill_tokens} prefix_hits="
+          f"{m.prefix_hits} shared_prefix_hits={m.shared_prefix_hits} "
+          f"shared_prefix_tokens={m.shared_prefix_tokens} pool="
+          f"{engine.pool.stats}")
+    print(f"[serve] paged_decode_chunk launches: {paged_after_serve} over "
+          f"{steps} steps ({paged_after_serve / steps:.1f}/step); "
+          f"warm_session(300 tokens) {warm_ms:.1f} ms with "
+          f"{flash_warm} flash launches; prefill_chunk=0 request "
+          f"(257-token prompt, 32 new) {mono_s:.2f} s; launches over the "
+          f"phase: {launches}")
+    del engine, mono
+    torch.cuda.empty_cache()
+    return model, params, launches
+
+
+def phase_check(torch, rt, model, params, cfg):
+    """First-step logits on the card (bf16, kernels) against the CPU
+    (float32, plain versions), through prefill and through a paged step."""
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.float().cpu()
+                for k, v in tree.items()}
+
+    cpu_params = to_cpu(params)
+    cpu_model = rt.build_model(cfg.replace(dtype="float32"))
+    rng = np.random.default_rng(2)
+    for n in (11, 19):
+        prompt = rng.integers(0, cfg.vocab_size, n)
+        outs = []
+        for mdl, prm, dev in ((model, params, "cuda"),
+                              (cpu_model, cpu_params, "cpu")):
+            toks = torch.from_numpy(prompt[None]).to(dev)
+            logits, _ = mdl.prefill(prm, {"tokens": toks})
+            pool = rt.PagedKVPool(mdl.cfg, n_pages=2, page_size=64,
+                                  device=dev)
+            pt = torch.tensor([[0, -1]], dtype=torch.int32, device=dev)
+            step, _, _, _ = mdl.decode_chunk_paged(
+                prm, toks, torch.tensor([n], dtype=torch.int32, device=dev),
+                {"pos": torch.zeros(1, dtype=torch.int32, device=dev)},
+                pool.k, pool.v, pt, max_seq=1024)
+            outs.append((logits[0].float().cpu(), step[0, -1].float().cpu()))
+        for (card, ref), name in zip(zip(*outs), ("prefill", "paged step")):
+            rel = ((card - ref).norm() / ref.norm()).item()
+            err = (card - ref).abs().max().item()
+            print(f"[check] prompt of {n}: {name} logits card bf16 vs cpu "
+                  f"f32: rel_l2={rel:.3e} (tol {LOGITS_REL_L2_TOL}) "
+                  f"max_abs={err:.3e} |ref|max={ref.abs().max().item():.3f} "
+                  f"argmax {int(card.argmax())} vs {int(ref.argmax())}")
+            check(bool(torch.isfinite(card).all())
+                  and rel <= LOGITS_REL_L2_TOL,
+                  f"{name} logits disagree with the CPU float32 run")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from the "
+              f"root of a checkout", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import repro_torch as rt
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.paged_attention import ref as paged_ref
+
+    t_start = time.perf_counter()
+    card = nvidia_smi()
+    print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    cfg = rt.get_config("qwen3-0.6b")
+    counters = [paged_ops.paged_decode_chunk, flash_ops.flash_attention_bhsd]
+    try:
+        phase_build(_build)
+        rows = phase_kernels(torch, Timer(torch), paged_ops, paged_ref,
+                             flash_ops, flash_ref, cfg)
+        model, params, launches = phase_serve(torch, rt, cfg, counters)
+        phase_check(torch, rt, model, params, cfg)
+    except Failed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    kernels = [dict(name=name, route="cuda", launches=launches[name], **row)
+               for name, row in rows.items()]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

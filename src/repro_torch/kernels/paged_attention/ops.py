@@ -1,0 +1,102 @@
+"""Wrapper of the paged chunk attention kernel (``csrc/paged_chunk.cu``).
+
+A CUDA tensor launches the hand-written kernel and the call raises if it
+cannot; a CPU tensor takes the plain version in :mod:`.ref`.  Nothing else
+chooses between them.  ``paged_decode_chunk.launches`` counts the kernel's
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import _build
+from .ref import paged_decode_chunk_ref
+
+_SMEM_LIMIT = 232_448     # bytes of shared memory a block may use (H100)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    lib = _build.load("paged_chunk")
+    fn = lib.paged_chunk_attention
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.paged_chunk_error_string.argtypes = [ctypes.c_int]
+    lib.paged_chunk_error_string.restype = ctypes.c_char_p
+    return fn, lib.paged_chunk_error_string
+
+
+def _smem_bytes(R: int, P: int, D: int) -> int:
+    """Dynamic shared memory of one block (must match the kernel)."""
+    return 4 * (R * (D + 1) + P * (D + 1) + P * D + R * P + R * D + 3 * R)
+
+
+def paged_decode_chunk(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, page_table: torch.Tensor,
+                       pos: torch.Tensor, *, scale: float,
+                       n_rep: int) -> torch.Tensor:
+    """Chunk attention straight over the KV pool.
+
+    q [B,T,H,D]; pages [n_pages,P,Hkv,D]; page_table [B,max_pages] int32
+    (-1 = no page); pos [B] int32, each sequence's first chunk position.
+    The chunk's own K/V must already be in the pages.  Rows past a
+    sequence's valid length return garbage; callers discard them.
+    -> [B,T,H,D].  The layout checks hold on every device, so the CPU path
+    takes exactly what the kernel takes."""
+    B, T, H, D = q.shape
+    if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError("k_pages/v_pages must both be [n_pages,P,Hkv,D]")
+    _n, P, Hkv, Dk = k_pages.shape
+    if Dk != D or H != Hkv * n_rep:
+        raise ValueError(f"q {tuple(q.shape)} does not match pages "
+                         f"{tuple(k_pages.shape)} with n_rep={n_rep}")
+    if page_table.dim() != 2 or page_table.shape[0] != B \
+            or tuple(pos.shape) != (B,):
+        raise ValueError("page_table must be [B,max_pages] and pos [B]")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("page_table", page_table), ("pos", pos)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in (torch.bfloat16, torch.float32) \
+            or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise ValueError("q and pages must share one type, bf16 or f32")
+    if page_table.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise ValueError("page_table and pos must be int32")
+    if q.device.type == "cpu":
+        return paged_decode_chunk_ref(q, k_pages, v_pages, page_table, pos,
+                                      scale=scale, n_rep=n_rep)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_chunk: unsupported device {q.device}")
+    vec = 16 // q.element_size()
+    if D % vec or any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError(f"head dim must be a multiple of {vec} and the "
+                         f"tensors 16-byte aligned")
+    smem = _smem_bytes(T * n_rep, P, D)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"T*n_rep={T * n_rep} rows need {smem} bytes of "
+                         f"shared memory (limit {_SMEM_LIMIT})")
+    out = torch.empty_like(q)
+    if B == 0 or T == 0:
+        return out
+    fn, err_str = _kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                 B, T, Hkv, n_rep, D, P, page_table.shape[1], float(scale),
+                 int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"paged_chunk_attention launch failed: "
+                           f"{err_str(err).decode()} (cuda error {err})")
+    paged_decode_chunk.launches += 1
+    return out
+
+
+paged_decode_chunk.launches = 0

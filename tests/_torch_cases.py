@@ -1,0 +1,47 @@
+"""Kernel test cases shared by the port's CPU and card kernel tests.
+
+The cases cover the hazards of both kernels: permuted page tables, -1
+padding, ragged positions, partial tail pages, chunk lengths and sequence
+lengths that are no multiple of any tile, and a windowed and a non-causal
+attention.  Inputs come from numpy seeds.
+"""
+
+import numpy as np
+
+
+def paged_case(seed, B, T, Hkv, n_rep, D, P, n_pages, maxp):
+    """Random q and pools with permuted tables, -1 tail padding and ragged
+    pos; every row's visible positions lie on real pages."""
+    rng = np.random.default_rng(seed)
+    H = Hkv * n_rep
+    q = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    kp = rng.standard_normal((n_pages, P, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, P, Hkv, D)).astype(np.float32)
+    pos = rng.integers(0, maxp * P - T + 1, B).astype(np.int32)
+    perm = rng.permutation(n_pages)
+    pt = np.full((B, maxp), -1, np.int32)
+    used = 0
+    for b in range(B):
+        need = -(-(int(pos[b]) + T) // P)
+        pt[b, :need] = perm[used:used + need]
+        used += need
+    assert used <= n_pages
+    return q, kp, vp, pt, pos
+
+
+PAGED_CASES = [
+    # seed, B, T, Hkv, n_rep, D, P, n_pages, maxp
+    (0, 3, 1, 2, 2, 32, 8, 24, 6),
+    (1, 2, 3, 2, 4, 32, 8, 24, 8),
+    (2, 4, 8, 1, 2, 16, 4, 40, 9),
+    (3, 2, 5, 2, 1, 32, 16, 12, 5),
+]
+
+
+FLASH_CASES = [
+    # seed, BH, Sq, Skv, D, causal, window
+    (0, 3, 17, 17, 32, True, None),
+    (1, 2, 100, 100, 16, True, None),
+    (2, 2, 70, 70, 32, True, 9),
+    (3, 1, 33, 45, 32, False, None),
+]

@@ -1,0 +1,86 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device (marker ``cuda``) and skips without
+one; none needs JAX.  On a machine with a card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerances: f32 1e-5 (summation order only); bf16 1e-2 absolute and
+relative (both sides round the output to bf16 once; the flash kernel also
+rounds its probabilities to bf16 before P.V, as its plain version does).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_cases import FLASH_CASES, PAGED_CASES, paged_case
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_bhsd_ref
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.paged_attention.ref import paged_decode_chunk_ref
+
+CARD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+            torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+# the serving path's shapes at full width: B=8, T=8, 16/8 heads, D=128,
+# P=64, the engine's default pool of 272 pages, 16 table entries
+MAIN_PAGED = (9, 8, 8, 8, 2, 128, 64, 272, 16)
+MAIN_FLASH = (9, 16, 500, 500, 128, True, None)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PAGED_CASES + [MAIN_PAGED])
+def test_paged_chunk_kernel_matches_plain(cuda_device, dtype, case):
+    seed, B, T, Hkv, n_rep, D, P, n_pages, maxp = case
+    arrs = paged_case(seed, B, T, Hkv, n_rep, D, P, n_pages, maxp)
+    q, kp, vp = (torch.from_numpy(a).to(cuda_device, dtype) for a in arrs[:3])
+    pt, pos = (torch.from_numpy(a).to(cuda_device) for a in arrs[3:])
+    n = paged_ops.paged_decode_chunk.launches
+    got = paged_ops.paged_decode_chunk(q, kp, vp, pt, pos, scale=D ** -0.5,
+                                       n_rep=n_rep)
+    torch.cuda.synchronize()
+    assert paged_ops.paged_decode_chunk.launches == n + 1
+    want = paged_decode_chunk_ref(q, kp, vp, pt, pos, scale=D ** -0.5,
+                                  n_rep=n_rep)
+    torch.testing.assert_close(got.float(), want.float(), **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES + [MAIN_FLASH])
+def test_flash_kernel_matches_plain(cuda_device, dtype, case):
+    seed, BH, Sq, Skv, D, causal, window = case
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((BH, S, D)).astype(
+        np.float32)).to(cuda_device, dtype) for S in (Sq, Skv, Skv))
+    n = flash_ops.flash_attention_bhsd.launches
+    got = flash_ops.flash_attention_bhsd(q, k, v, causal=causal,
+                                         window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention_bhsd.launches == n + 1
+    want = flash_attention_bhsd_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros(2, 1, 4, 32, device=cuda_device, dtype=torch.float16)
+    kp = torch.zeros(4, 8, 2, 32, device=cuda_device, dtype=torch.float16)
+    pt = torch.zeros(2, 2, device=cuda_device, dtype=torch.int32)
+    pos = torch.zeros(2, device=cuda_device, dtype=torch.int32)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        paged_ops.paged_decode_chunk(q, kp, kp, pt, pos, scale=1.0, n_rep=2)
+    with pytest.raises(ValueError, match="int32"):
+        paged_ops.paged_decode_chunk(q.float(), kp.float(), kp.float(),
+                                     pt.long(), pos, scale=1.0, n_rep=2)
+    x = torch.zeros(2, 8, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_ops.flash_attention_bhsd(x, x, x)
