@@ -9,18 +9,28 @@ the run with a non-zero exit and no result line:
 1. build   — compile every CUDA kernel of the port from ``src/repro_torch/
              csrc/`` (one ``nvcc`` per source, all at once).
 2. kernels — hold each kernel against its plain PyTorch version on the card
-             in bf16 at the serving path's shapes, and time kernel, plain
-             version and a PyTorch yardstick (``library_ms``, never used by
-             the port) against the card's bound.
+             in bf16 at the shapes of the path that runs it, and time
+             kernel, plain version and a PyTorch yardstick (``library_ms``,
+             never used by the port) against the card's bound.
 3. serve   — qwen3-0.6b at full width (random weights from a seed) served by
-             the port's ``InferenceEngine``: 16 requests with follow-up
-             turns and a shared system prompt (timed), a third wave of 8
-             requests of which 10 steps run under ``torch.profiler``, one
-             ``warm_session`` replay and one request on a
-             ``prefill_chunk=0`` engine.  Both kernels' launch counters are
-             set to 0 before this phase and read after it.
+             the port's paged ``InferenceEngine``: 16 requests with
+             follow-up turns and a shared system prompt (timed), a third
+             wave of 8 requests of which 10 steps run under
+             ``torch.profiler``, one ``warm_session`` replay and one request
+             on a ``prefill_chunk=0`` engine.  Every launch counter is set to
+             0 before this phase and read after it (the paged chunk and
+             flash kernels run here).
 4. check   — first-step next-token logits of two short prompts on the card
              (bf16) against the same weights run on the CPU in float32.
+5. decode  — the model API's dense path: ``prefill(pad_cache_to=1024)`` of 8
+             prompts, then 64 ``decode_step``s, whose attention is the
+             ring-decode kernel (counters set to 0 before, read after: 28
+             launches per step); the first step's logits against the CPU in
+             float32.
+6. dense   — the serve trace on an ``InferenceEngine(paged_decode=False)``
+             (the dense slot-cache plane, stepped by ``decode_chunk``, which
+             launches none of the kernels); follow-up turns resume through
+             ``gather_contiguous``.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit (``nvidia-smi``), and ``{"ok": true, "device": {...}}``.
@@ -50,6 +60,9 @@ KERNEL_TOL = dict(rtol=1e-2, atol=1e-2)
 # card bf16 vs CPU float32 logits through 28 layers: bf16 rounds every
 # activation (relative 2^-9), compounding over ~10 roundings per layer
 LOGITS_REL_L2_TOL = 5e-2
+# card float32 vs CPU float32: the same math summed in another order (the
+# kernels' tiles, cuBLAS's splits), float32 matmuls in full precision
+F32_REL_L2_TOL = 1e-3
 
 
 class Failed(Exception):
@@ -154,6 +167,16 @@ def flash_cost(BH, S, D, window):
     return 4 * BH * S * D * 2, 4 * D * BH * visible
 
 
+def ring_cost(visible, H, Hkv, D):
+    """Bytes and flops of one ring-decode call: q in and out back (bf16),
+    pos, and the K and V of every visible slot; 4*D flops per (query head,
+    visible slot)."""
+    B = visible.shape[0]
+    n_vis = int(visible.sum())
+    n_bytes = 2 * B * H * D * 2 + B * 4 + 2 * n_vis * Hkv * D * 2
+    return n_bytes, 4 * D * H * n_vis
+
+
 # ----------------------------------------------------------------- phases
 def phase_build(_build):
     t0 = time.perf_counter()
@@ -169,7 +192,7 @@ def phase_build(_build):
 
 
 def phase_kernels(torch, timer, paged_ops, paged_ref, flash_ops, flash_ref,
-                  cfg):
+                  cfg, decode_batch, decode_ctx):
     F = torch.nn.functional
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     n_rep = H // Hkv
@@ -286,6 +309,79 @@ def phase_kernels(torch, timer, paged_ops, paged_ref, flash_ops, flash_ref,
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:87",
         max_abs_err=err, **t)
+
+    # --- decode_ring (decode_attention_kernel): decode_step's shapes, a
+    # 1024-slot cache without a window (ragged pos, some past C), a 256-slot
+    # ring with a 256 window whose positions wrap it up to 7 times, and a
+    # 1024-slot ring with a 256 window
+    B = decode_batch
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rng = np.random.default_rng(11)
+
+    def ring_inputs(C, pos):
+        q = torch.randn((B, 1, H, D), generator=g, device="cuda")
+        ck, cv = (torch.randn((B, C, Hkv, D), generator=g, device="cuda")
+                  for _ in range(2))
+        return ([x.to(torch.bfloat16) for x in (q, ck, cv)]
+                + [torch.from_numpy(pos.astype(np.int32)).cuda()])
+
+    err = 0.0
+    for C, window, hi in ((1024, None, 1400), (256, 256, 2000),
+                          (1024, 256, 2000)):
+        pos = rng.integers(0, hi, B)
+        pos[:2] = (C - 1, C + 5)        # the last slot, and past it
+        q, ck, cv, pos_t = ring_inputs(C, pos)
+        got = paged_ops.decode_attention_kernel(q, ck, cv, pos_t,
+                                                window=window, scale=scale,
+                                                n_rep=n_rep)
+        torch.cuda.synchronize()
+        want = paged_ref.decode_ring_ref(q, ck, cv, pos_t, scale=scale,
+                                         n_rep=n_rep, window=window)
+        e = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), **KERNEL_TOL)
+        print(f"[kernels] decode_ring B={B} C={C} window={window} pos="
+              f"{pos.min()}..{pos.max()} max_abs_err={e:.3e} "
+              f"tol={KERNEL_TOL} ok={ok}")
+        check(ok and bool(torch.isfinite(got).all()),
+              f"decode_ring disagrees with its plain version (C={C}, "
+              f"window={window})")
+        err = max(err, e)
+
+    # timed at the decode phase's shapes: a 1024-slot cache, contexts of
+    # its 64 steps after a 256-token prompt; and once over a full cache
+    timings = {}
+    for label, lo, hi in (("decode", decode_ctx, decode_ctx + 64),
+                          ("full", 960, 1024)):
+        C = 1024
+        q, ck, cv, pos_t = ring_inputs(C, rng.integers(lo, hi, B))
+        visible = paged_ref.ring_visible(pos_t, C, None)
+        n_bytes, flops = ring_cost(visible, H, Hkv, D)
+        bound, by = bound_ms(n_bytes, flops)
+        mask = visible[:, None, None, :]
+
+        def library():
+            # SDPA with a boolean mask over the GQA-repeated cache
+            kr = ck.repeat_interleave(n_rep, dim=2).transpose(1, 2)
+            vr = cv.repeat_interleave(n_rep, dim=2).transpose(1, 2)
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kr, vr, attn_mask=mask, scale=scale)
+
+        t = {"ms": timer.ms(lambda: paged_ops.decode_attention_kernel(
+                 q, ck, cv, pos_t, window=None, scale=scale, n_rep=n_rep)),
+             "plain_ms": timer.ms(lambda: paged_ref.decode_ring_ref(
+                 q, ck, cv, pos_t, scale=scale, n_rep=n_rep)),
+             "library_ms": timer.ms(library),
+             "bound_ms": bound, "bound_by": by}
+        timings[label] = t
+        print(f"[kernels] decode_ring timed ({label}) B={B} C={C} H={H} "
+              f"Hkv={Hkv} D={D} pos={pos_t.min().item()}.."
+              f"{pos_t.max().item()}: ms={t['ms']:.4f} plain_ms="
+              f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+              f"bound_ms={bound:.5f} ({by}; {n_bytes} B, {flops} flop)")
+    rows["decode_ring"] = dict(
+        source="src/repro_torch/csrc/decode_ring.cu",
+        replaces="src/repro/kernels/paged_attention/paged_attention.py:81",
+        max_abs_err=err, **timings["decode"])
     return rows
 
 
@@ -367,7 +463,7 @@ def phase_serve(torch, rt, cfg, counters):
           f"{cfg.head_dim_}, vocab {cfg.vocab_size}, {cfg.param_count()} "
           f"params in {cfg.dtype}; set up in {time.perf_counter() - t0:.1f} s")
 
-    for c in counters:
+    for c in counters.values():
         c.launches = 0
     greedy = SamplingParams(max_new_tokens=32)
     reqs, step_ms = [], []
@@ -385,19 +481,19 @@ def phase_serve(torch, rt, cfg, counters):
             step_ms.append((time.perf_counter() - t) * 1e3)
     serve_s = time.perf_counter() - t_serve
     m = engine.metrics
-    paged_after_serve = counters[0].launches
+    paged_after_serve = counters["paged_decode_chunk"].launches
     served = dict(decode_steps=m.decode_steps, tokens=m.tokens_generated,
                   prefill_tokens=m.prefill_tokens)
     profile_window(torch, engine, cfg, Request, SamplingParams(
         max_new_tokens=16))
-    flash_before = counters[1].launches
+    flash_before = counters["flash_attention_bhsd"].launches
 
     warm_toks = np.random.default_rng(1).integers(0, cfg.vocab_size, 300)
     t = time.perf_counter()
     warmed = engine.warm_session("replay0", [int(x) for x in warm_toks])
     torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t) * 1e3
-    flash_warm = counters[1].launches - flash_before
+    flash_warm = counters["flash_attention_bhsd"].launches - flash_before
 
     mono = rt.InferenceEngine(model, params, max_batch=8, max_seq=1024,
                               page_size=64, prefill_chunk=0)
@@ -405,7 +501,7 @@ def phase_serve(torch, rt, cfg, counters):
     mono_toks = np.random.default_rng(3).integers(0, cfg.vocab_size, 257)
     mono_req = mono.generate(mono_toks, session_id="mono0", sampling=greedy)
     mono_s = time.perf_counter() - t
-    launches = {c.__name__: c.launches for c in counters}
+    launches = {name: c.launches for name, c in counters.items()}
 
     check(all(r.finished and len(r.generated) == 32 for r in reqs),
           "not every request finished with 32 tokens")
@@ -414,7 +510,8 @@ def phase_serve(torch, rt, cfg, counters):
     check(warmed == 300 and flash_warm > 0,
           f"warm_session replayed {warmed} tokens with {flash_warm} flash "
           f"launches")
-    check(all(n > 0 for n in launches.values()),
+    check(launches["paged_decode_chunk"] > 0
+          and launches["flash_attention_bhsd"] > 0,
           f"a kernel of the path never launched: {launches}")
     check(m.prefix_hits >= 4 and m.shared_prefix_hits >= 4,
           f"resume / prefix sharing did not fire: {m}")
@@ -444,17 +541,36 @@ def phase_serve(torch, rt, cfg, counters):
           f"phase: {launches}")
     del engine, mono
     torch.cuda.empty_cache()
-    return model, params, launches
+    return model, params, launches, [list(r.generated) for r in reqs]
 
 
-def phase_check(torch, rt, model, params, cfg):
+def to_f32(tree, device="cpu"):
+    """A float32 copy of a parameter tree, on ``device``."""
+    return {k: to_f32(v, device) if isinstance(v, dict)
+            else v.float().to(device) for k, v in tree.items()}
+
+
+def compare_logits(torch, name, card, ref, tol=LOGITS_REL_L2_TOL,
+                   card_type="bf16"):
+    """Card logits [V] against CPU float32 ones: finite, relative L2 error
+    within ``tol``.  Returns (same argmax, the CPU's logit gap between its
+    argmax and the card's, the largest absolute difference)."""
+    rel = ((card - ref).norm() / ref.norm()).item()
+    err = (card - ref).abs().max().item()
+    a, b = int(card.argmax()), int(ref.argmax())
+    gap = (ref[b] - ref[a]).item()
+    print(f"[check] {name} logits card {card_type} vs cpu f32: rel_l2="
+          f"{rel:.3e} (tol {tol}) max_abs={err:.3e} "
+          f"|ref|max={ref.abs().max().item():.3f} argmax {a} vs {b} "
+          f"(cpu gap {gap:.3e})")
+    check(bool(torch.isfinite(card).all()) and rel <= tol,
+          f"{name} logits disagree with the CPU float32 run")
+    return a == b, gap, err
+
+
+def phase_check(torch, rt, model, params, cfg, cpu_params):
     """First-step logits on the card (bf16, kernels) against the CPU
     (float32, plain versions), through prefill and through a paged step."""
-    def to_cpu(tree):
-        return {k: to_cpu(v) if isinstance(v, dict) else v.float().cpu()
-                for k, v in tree.items()}
-
-    cpu_params = to_cpu(params)
     cpu_model = rt.build_model(cfg.replace(dtype="float32"))
     rng = np.random.default_rng(2)
     for n in (11, 19):
@@ -473,15 +589,130 @@ def phase_check(torch, rt, model, params, cfg):
                 pool.k, pool.v, pt, max_seq=1024)
             outs.append((logits[0].float().cpu(), step[0, -1].float().cpu()))
         for (card, ref), name in zip(zip(*outs), ("prefill", "paged step")):
-            rel = ((card - ref).norm() / ref.norm()).item()
-            err = (card - ref).abs().max().item()
-            print(f"[check] prompt of {n}: {name} logits card bf16 vs cpu "
-                  f"f32: rel_l2={rel:.3e} (tol {LOGITS_REL_L2_TOL}) "
-                  f"max_abs={err:.3e} |ref|max={ref.abs().max().item():.3f} "
-                  f"argmax {int(card.argmax())} vs {int(ref.argmax())}")
-            check(bool(torch.isfinite(card).all())
-                  and rel <= LOGITS_REL_L2_TOL,
-                  f"{name} logits disagree with the CPU float32 run")
+            compare_logits(torch, f"prompt of {n}: {name}", card, ref)
+
+
+def phase_decode(torch, rt, cfg, model, params, cpu_params, counters,
+                 batch, prompt_len, steps=64, max_seq=1024):
+    """The model API's dense path on the card: prefill with decode
+    headroom, then ``steps`` decode_steps (each through 28 ring kernel
+    launches).  Returns the ring kernel's launches."""
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
+    toks = torch.from_numpy(prompts).cuda()
+    logits, cache = model.prefill(params, {"tokens": toks},
+                                  pad_cache_to=max_seq)
+    check(tuple(cache["k"].shape) == (cfg.n_layers, batch, max_seq,
+                                      cfg.n_kv_heads, cfg.head_dim_),
+          f"prefill cache shape {tuple(cache['k'].shape)}")
+    tok = torch.argmax(logits, dim=-1)
+    first_tok = tok.cpu()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    step_ms, first = [], None
+    t0 = time.perf_counter()
+    for i in range(steps):
+        t = time.perf_counter()
+        out, cache = model.decode_step(params, tok, cache)
+        tok = torch.argmax(out, dim=-1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if first is None:
+            first = out.float().cpu()
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    ring = launches["decode_ring"]
+    check(ring == cfg.n_layers * steps,
+          f"decode_ring launched {ring} times in {steps} steps "
+          f"(want {cfg.n_layers} per step): {launches}")
+    check(bool(torch.isfinite(out).all()) and out.shape == (
+        batch, cfg.vocab_size), "decode_step logits are not finite")
+    check(cache["pos"].tolist() == [prompt_len + steps] * batch,
+          f"decode positions {cache['pos'].tolist()}")
+    print(f"[decode] B={batch} prompt {prompt_len} + {steps} decode_steps "
+          f"(cache {max_seq}): {batch * steps / wall:.1f} tok/s, "
+          f"{steps / wall:.2f} steps/s, step ms p50 "
+          f"{np.percentile(step_ms, 50):.2f} p99 "
+          f"{np.percentile(step_ms, 99):.2f}; launches {launches}")
+    # the first step of two rows in float32, from the same prompts and the
+    # card's prefill tokens: on the CPU (plain versions), and on the card
+    # (kernels in float32, the weights upcast)
+    f32_model = rt.build_model(cfg.replace(dtype="float32"))
+    n = 2
+    f32 = {}
+    for dev, prm in (("cpu", cpu_params),
+                     ("cuda", to_f32(params, device="cuda"))):
+        _, c = f32_model.prefill(
+            prm, {"tokens": torch.from_numpy(prompts[:n]).to(dev)},
+            pad_cache_to=max_seq)
+        out, _ = f32_model.decode_step(prm, first_tok[:n].to(dev), c)
+        f32[dev] = out.float().cpu()
+        del c, prm
+    for b in range(n):
+        ref = f32["cpu"][b]
+        # bf16: argmax equal, unless the two tokens are tied within the
+        # two runs' own largest difference
+        same, gap, err = compare_logits(torch, f"decode_step row {b}",
+                                        first[b], ref)
+        check(same or gap <= err,
+              f"decode_step row {b}: card bf16 and CPU argmax differ by a "
+              f"CPU logit gap of {gap:.3e} > the runs' max difference "
+              f"{err:.3e}")
+        same, _, _ = compare_logits(torch, f"decode_step row {b}",
+                                    f32["cuda"][b], ref, tol=F32_REL_L2_TOL,
+                                    card_type="f32")
+        check(same, f"decode_step row {b}: card f32 and CPU argmax differ")
+    return ring
+
+
+def phase_dense(torch, rt, cfg, model, params, counters, paged_tokens):
+    """The serve trace on the dense slot-cache plane."""
+    from repro_torch.serving import Request, SamplingParams
+
+    engine = rt.InferenceEngine(model, params, max_batch=8, max_seq=1024,
+                                page_size=64, prefill_chunk=8,
+                                paged_decode=False)
+    check(engine.telemetry()["paged_decode"] is False,
+          "paged_decode=False did not select the dense plane")
+    for c in counters.values():
+        c.launches = 0
+    greedy = SamplingParams(max_new_tokens=32)
+    reqs, step_ms = [], []
+    t0 = time.perf_counter()
+    for wave in serve_trace(cfg.vocab_size):
+        for sid, prompt in wave:
+            req = Request.make(prompt, session_id=sid, sampling=greedy)
+            engine.submit(req)
+            reqs.append(req)
+        while True:
+            t = time.perf_counter()
+            n = engine.step()
+            if n == 0 and len(engine.queue) == 0:
+                break
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    m = engine.metrics
+    check(all(r.finished and len(r.generated) == 32 for r in reqs),
+          "dense plane: not every request finished with 32 tokens")
+    check(all(r.decode_path == "fused" for r in reqs),
+          "dense plane: a request took another decode path")
+    check(m.prefix_hits >= 4 and m.completed == len(reqs),
+          f"dense plane: follow-up turns did not resume: {m}")
+    engine.pool.check_invariants()
+    same = sum(a == list(r.generated) for a, r in zip(paged_tokens, reqs))
+    print(f"[dense] {len(reqs)} requests, {m.tokens_generated} tokens in "
+          f"{wall:.2f} s: {m.tokens_generated / wall:.1f} generated tok/s, "
+          f"{(m.prefill_tokens + m.tokens_generated) / wall:.1f} processed "
+          f"tok/s; {m.decode_steps} steps, step ms p50 "
+          f"{np.percentile(step_ms, 50):.2f} p99 "
+          f"{np.percentile(step_ms, 99):.2f}; prefix_hits={m.prefix_hits} "
+          f"shared_prefix_hits={m.shared_prefix_hits} pool="
+          f"{engine.pool.stats}; {same}/{len(reqs)} requests with the paged "
+          f"plane's tokens (bf16); launches {launches}")
+    del engine
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -506,13 +737,23 @@ def main() -> int:
     card = nvidia_smi()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     cfg = rt.get_config("qwen3-0.6b")
-    counters = [paged_ops.paged_decode_chunk, flash_ops.flash_attention_bhsd]
+    counters = {"paged_decode_chunk": paged_ops.paged_decode_chunk,
+                "flash_attention_bhsd": flash_ops.flash_attention_bhsd,
+                "decode_ring": paged_ops.decode_attention_kernel}
+    decode_batch, decode_prompt = 8, 256
     try:
         phase_build(_build)
         rows = phase_kernels(torch, Timer(torch), paged_ops, paged_ref,
-                             flash_ops, flash_ref, cfg)
-        model, params, launches = phase_serve(torch, rt, cfg, counters)
-        phase_check(torch, rt, model, params, cfg)
+                             flash_ops, flash_ref, cfg, decode_batch,
+                             decode_prompt)
+        model, params, launches, paged_tokens = phase_serve(torch, rt, cfg,
+                                                            counters)
+        cpu_params = to_f32(params)
+        phase_check(torch, rt, model, params, cfg, cpu_params)
+        launches["decode_ring"] = phase_decode(
+            torch, rt, cfg, model, params, cpu_params, counters,
+            decode_batch, decode_prompt)
+        phase_dense(torch, rt, cfg, model, params, counters, paged_tokens)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,20 +1,22 @@
-"""Wrapper of the paged chunk attention kernel (``csrc/paged_chunk.cu``).
+"""Wrappers of the decode attention kernels: paged chunk attention
+(``csrc/paged_chunk.cu``) and ring decode attention (``csrc/decode_ring.cu``).
 
 A CUDA tensor launches the hand-written kernel and the call raises if it
 cannot; a CPU tensor takes the plain version in :mod:`.ref`.  Nothing else
-chooses between them.  ``paged_decode_chunk.launches`` counts the kernel's
-launches.
+chooses between them.  ``paged_decode_chunk.launches`` and
+``decode_attention_kernel.launches`` count the kernels' launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from .. import _build
-from .ref import paged_decode_chunk_ref
+from .ref import decode_ring_ref, paged_decode_chunk_ref
 
 _SMEM_LIMIT = 232_448     # bytes of shared memory a block may use (H100)
 
@@ -100,3 +102,96 @@ def paged_decode_chunk(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_decode_chunk.launches = 0
+
+
+# ------------------------------------------------------------- ring decode
+RING_BLOCK_K = 64         # cache slots per staged tile (must match the kernel)
+
+
+@functools.lru_cache(maxsize=None)
+def _ring_kernel():
+    lib = _build.load("decode_ring")
+    fn = lib.decode_ring_attention
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.decode_ring_error_string.argtypes = [ctypes.c_int]
+    lib.decode_ring_error_string.restype = ctypes.c_char_p
+    return fn, lib.decode_ring_error_string
+
+
+def _ring_smem_bytes(n_rep: int, D: int) -> int:
+    """Dynamic shared memory of one ring block (must match the kernel)."""
+    bk = RING_BLOCK_K
+    return 4 * (n_rep * (D + 1) + bk * (D + 1) + bk * D + n_rep * bk
+                + n_rep * D + 3 * n_rep)
+
+
+def decode_attention_kernel(q: torch.Tensor, cache_k: torch.Tensor,
+                            cache_v: torch.Tensor, pos: torch.Tensor, *,
+                            window: Optional[int], scale: float,
+                            n_rep: int) -> torch.Tensor:
+    """One-token attention over the dense per-slot (ring) cache.
+
+    q [B,1,H,D] with H = Hkv*n_rep; cache_k/cache_v [B,C,Hkv,D]; pos [B]
+    int32, each sequence's position (>= 0; ``pos >= C`` is legal and then
+    every slot is visible without a window).  With ``window`` the cache is
+    a ring and only the last ``min(window, pos+1)`` positions are visible.
+    -> [B,1,H,D].  The layout checks hold on every device, so the CPU path
+    takes exactly what the kernel takes."""
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"q must be [B,1,H,D], got {tuple(q.shape)}")
+    B, _, H, D = q.shape
+    if cache_k.dim() != 4 or cache_v.shape != cache_k.shape:
+        raise ValueError("cache_k/cache_v must both be [B,C,Hkv,D]")
+    Bc, C, Hkv, Dk = cache_k.shape
+    if Bc != B or Dk != D or H != Hkv * n_rep:
+        raise ValueError(f"q {tuple(q.shape)} does not match the cache "
+                         f"{tuple(cache_k.shape)} with n_rep={n_rep}")
+    if tuple(pos.shape) != (B,):
+        raise ValueError(f"pos must be [B], got {tuple(pos.shape)}")
+    for name, t in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v),
+                    ("pos", pos)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in (torch.bfloat16, torch.float32) \
+            or cache_k.dtype != q.dtype or cache_v.dtype != q.dtype:
+        raise ValueError("q and the cache must share one type, bf16 or f32")
+    if pos.dtype != torch.int32:
+        raise ValueError("pos must be int32")
+    if window is not None and window <= 0:
+        raise ValueError("window must be positive")
+    if q.device.type == "cpu":
+        return decode_ring_ref(q, cache_k, cache_v, pos, scale=scale,
+                               n_rep=n_rep, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_kernel: unsupported device "
+                         f"{q.device}")
+    vec = 16 // q.element_size()
+    if D % vec or any(t.data_ptr() % 16 for t in (q, cache_k, cache_v)):
+        raise ValueError(f"head dim must be a multiple of {vec} and the "
+                         f"tensors 16-byte aligned")
+    smem = _ring_smem_bytes(n_rep, D)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"n_rep={n_rep} rows of head dim {D} need {smem} "
+                         f"bytes of shared memory (limit {_SMEM_LIMIT})")
+    out = torch.empty_like(q)
+    if B == 0 or C == 0:
+        return out
+    fn, err_str = _ring_kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+                 pos.data_ptr(), out.data_ptr(), B, C, Hkv, n_rep, D,
+                 -1 if window is None else int(window), float(scale),
+                 int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"decode_ring_attention launch failed: "
+                           f"{err_str(err).decode()} (cuda error {err})")
+    decode_attention_kernel.launches += 1
+    return out
+
+
+decode_attention_kernel.launches = 0

@@ -1,17 +1,51 @@
-"""Plain PyTorch version of the paged chunk attention kernel.
+"""Plain PyTorch versions of the decode attention kernels.
 
-Repeats the kernel's arithmetic: f32 logits, positions past a row's query
-position and pages whose table entry is -1 masked with -1e30, f32 softmax,
-and P.V kept in f32 (as ``_paged_chunk_kernel`` does on the TPU), then one
-cast to q's type.  It gathers the pages densely, so it is the oracle and the
-CPU path, not a fast path.
+Each repeats its kernel's arithmetic: f32 logits, invisible positions
+masked with -1e30, f32 softmax, and P.V kept in f32 (as the TPU kernels
+do), then one cast to q's type.  They materialize the masked logits over
+the whole cache (the paged one gathers the pages densely), so they are the
+oracles and the CPU path, not fast paths.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 NEG_INF = -1e30
+
+
+def ring_visible(pos: torch.Tensor, C: int,
+                 window: Optional[int]) -> torch.Tensor:
+    """[B, C] mask of the cache slots a query at ``pos`` [B] sees.  With a
+    window the cache is a ring (slot = position % C) and a slot is visible
+    when its age ``(pos % C - slot) % C`` is below ``min(window, pos+1)``;
+    without one, slots ``<= pos`` are visible."""
+    pos = pos.long()[:, None]
+    slots = torch.arange(C, device=pos.device)[None, :]
+    if window is None:
+        return slots <= pos
+    age = torch.remainder(torch.remainder(pos, C) - slots, C)
+    return age < torch.clamp(pos + 1, max=window)
+
+
+def decode_ring_ref(q: torch.Tensor, cache_k: torch.Tensor,
+                    cache_v: torch.Tensor, pos: torch.Tensor, *,
+                    scale: float, n_rep: int,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """One-token attention: q [B,1,H,D] over the dense per-slot cache
+    [B,C,Hkv,D] (query head g*n_rep + r reads kv head g), visibility by
+    :func:`ring_visible`.  -> [B,1,H,D]."""
+    B, C, Hkv, D = cache_k.shape
+    qg = q.float().reshape(B, Hkv, n_rep, D)
+    logits = torch.einsum("bgrd,bcgd->bgrc", qg, cache_k.float()) * scale
+    visible = ring_visible(pos, C, window)
+    logits = torch.where(visible[:, None, None], logits,
+                         torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgrc,bcgd->bgrd", probs, cache_v.float())
+    return out.reshape(B, 1, Hkv * n_rep, D).to(q.dtype)
 
 
 def paged_decode_chunk_ref(q: torch.Tensor, k_pages: torch.Tensor,

@@ -6,10 +6,14 @@ Layouts match the reference at every public function: activations
 [n_pages, P, Hkv, Dh].  Activations flow in ``cfg.torch_dtype``; norms and
 softmax accumulate in f32.  The two attention functions of the serving path
 go through hand-written CUDA kernels on a CUDA tensor and through their
-plain versions on a CPU tensor (``kernels/*/ops.py``).  ``full_attention``
-and ``paged_chunk_attention`` only pass through to those wrappers: they are
-kept so that the port's layer names match ``repro.models.layers`` one for
-one, which the parity tests and the transformer rely on.
+plain versions on a CPU tensor (``kernels/*/ops.py``).  ``full_attention``,
+``paged_chunk_attention`` and ``decode_attention`` only pass through to
+those wrappers: they are kept so that the port's layer names match
+``repro.models.layers`` one for one, which the parity tests and the
+transformer rely on.  The dense slot-cache writes (``kv_cache_update*``)
+update the cache in place, where the reference returns a new array: the
+serving cache is hundreds of MB at full width, and the callers never read
+the old one.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
-from ..kernels.paged_attention.ops import paged_decode_chunk
+from ..kernels.paged_attention.ops import (decode_attention_kernel,
+                                           paged_decode_chunk)
 
 NEG_INF = -1e30
 
@@ -125,15 +130,78 @@ def attention_qkv(x: torch.Tensor, p: dict, cfg: ModelConfig,
     return q, k, v
 
 
+# ------------------------------------------------------------ decode utils
+def pad_cache_seq(ks: torch.Tensor, vs: torch.Tensor, C: int,
+                  window: Optional[int], pad_cache_to: Optional[int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Grow a prefill cache's seq dim (axis 2 of [L,B,C,H,D]) for decode
+    headroom.  Windowed caches never grow past the window (the ring already
+    holds the last ``window`` entries; C == window when S > window)."""
+    if pad_cache_to is None:
+        return ks, vs
+    target = min(pad_cache_to, window) if window else pad_cache_to
+    if target <= C:
+        return ks, vs
+    pads = (0, 0, 0, 0, 0, target - C)
+    return F.pad(ks, pads), F.pad(vs, pads)
+
+
+def _cache_slots(positions: torch.Tensor, C: int,
+                 window: Optional[int]) -> torch.Tensor:
+    """Cache slot of each position: ring-rolled with a window, else clamped
+    to the last slot."""
+    if window is not None:
+        return torch.remainder(positions, C)
+    return torch.clamp(positions, max=C - 1)
+
+
+def kv_cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+                    window: Optional[int]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write one step's k/v ([B,1,Hkv,Dh]) at per-sequence ``pos`` [B]
+    (ring-rolled if windowed) into cache_[kv] [B,C,Hkv,Dh], in place."""
+    B, C = cache_k.shape[0], cache_k.shape[1]
+    slot = _cache_slots(pos.long().expand(B), C, window)
+    b = torch.arange(B, device=cache_k.device)
+    cache_k[b, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[b, slot] = v[:, 0].to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def kv_cache_update_chunk(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                          k: torch.Tensor, v: torch.Tensor,
+                          pos: torch.Tensor, valid: torch.Tensor,
+                          window: Optional[int]
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write up to T tokens' k/v ([B,T,Hkv,Dh]) at per-sequence positions
+    ``pos .. pos+T-1`` (ring-rolled if windowed), in place.  ``valid``
+    [B,T] masks the tail: an invalid position re-writes the cache's
+    existing value, so a sequence advancing fewer than T tokens leaves the
+    rest of its row untouched."""
+    B, C = cache_k.shape[0], cache_k.shape[1]
+    T = k.shape[1]
+    dev = cache_k.device
+    positions = pos.long().expand(B)[:, None] + torch.arange(
+        T, device=dev)[None, :]
+    slot = _cache_slots(positions, C, window)
+    b = torch.arange(B, device=dev)[:, None]
+    m = valid[..., None, None]
+    cache_k[b, slot] = torch.where(m, k.to(cache_k.dtype), cache_k[b, slot])
+    cache_v[b, slot] = torch.where(m, v.to(cache_v.dtype), cache_v[b, slot])
+    return cache_k, cache_v
+
+
 def chunk_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                            cache_v: torch.Tensor, positions: torch.Tensor,
                            cfg: ModelConfig) -> torch.Tensor:
     """T-token attention: q:[B,T,H,Dh] over a dense cache [B,C,Hkv,Dh]
     whose chunk k/v has already been written; query t attends cache
     positions <= positions[:, t].  The reference's gathered-dense (XLA)
-    math for the paged step, with its numerics: probabilities cast to v's
-    type before P.V.  The port's paged step runs
-    :func:`paged_chunk_attention`; this is the oracle tests hold it to."""
+    math for the dense chunk step (and the paged step's gathered-dense
+    path), with its numerics: probabilities cast to v's type before P.V.
+    It serves the dense plane's ``decode_chunk``; the port's paged step
+    runs :func:`paged_chunk_attention`, which tests hold to this."""
     C = cache_k.shape[1]
     n_rep = cfg.n_heads // cfg.n_kv_heads
     scale = cfg.head_dim_ ** -0.5
@@ -146,6 +214,68 @@ def chunk_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                          torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def chunk_decode_attention_windowed(q: torch.Tensor, cache_k: torch.Tensor,
+                                    cache_v: torch.Tensor,
+                                    k_new: torch.Tensor, v_new: torch.Tensor,
+                                    pos: torch.Tensor,
+                                    valid_len: torch.Tensor,
+                                    positions: torch.Tensor,
+                                    cfg: ModelConfig,
+                                    window: int) -> torch.Tensor:
+    """Chunked attention for ring (sliding-window) caches, computed against
+    the **pre-write** cache plus the chunk's own k/v (a chunk write can
+    clobber ring slots that earlier in-chunk queries still need).  Query t
+    (logical position ``positions[:, t]``) attends the pre-write cache,
+    whose slot s holds the largest position < pos congruent to s (mod C),
+    masked to its window, and the chunk itself, causally, window-masked and
+    clipped to each sequence's valid length.  The reference's XLA math,
+    with its numerics: probabilities cast to v's type before P.V."""
+    B, C = cache_k.shape[0], cache_k.shape[1]
+    T = k_new.shape[1]
+    dev = q.device
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    scale = cfg.head_dim_ ** -0.5
+    pos = pos.long().expand(B)
+    p = positions.long()[..., None]                             # [B,T,1]
+    win = min(window, C)
+    slots = torch.arange(C, device=dev)[None, :]
+    h_old = pos[:, None] - 1 - torch.remainder(pos[:, None] - 1 - slots, C)
+    valid_old = (h_old[:, None, :] >= 0) & (h_old[:, None, :] > p - win)
+    k_c = repeat_kv(cache_k, n_rep)
+    v_c = repeat_kv(cache_v, n_rep)
+    log_c = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_c.float()) * scale
+    log_c = torch.where(valid_old[:, None], log_c,
+                        torch.full_like(log_c, NEG_INF))
+    t_new = torch.arange(T, device=dev)
+    p_new = pos[:, None] + t_new[None, :]                       # [B,T]
+    valid_new = ((p_new[:, None, :] <= p) & (p_new[:, None, :] > p - win)
+                 & (t_new[None, None, :] < valid_len.long()[:, None, None]))
+    k_n = repeat_kv(k_new, n_rep)
+    v_n = repeat_kv(v_new, n_rep)
+    log_n = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_n.float()) * scale
+    log_n = torch.where(valid_new[:, None], log_n,
+                        torch.full_like(log_n, NEG_INF))
+    probs = torch.softmax(torch.cat([log_c, log_n], dim=-1), dim=-1)
+    vals = torch.cat([v_c, v_n.to(v_c.dtype)], dim=1)          # [B,C+T,...]
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(vals.dtype), vals)
+
+
+def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos: torch.Tensor,
+                     cfg: ModelConfig,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """One-token attention: q [B,1,H,Dh] over the dense cache [B,C,Hkv,Dh],
+    the port of ``layers.decode_attention(impl="pallas")``: the ring kernel
+    on a CUDA tensor, its plain version on a CPU tensor.  ``pos`` [B] is
+    each sequence's position; with a window the cache is a ring and entries
+    older than ``window`` are masked."""
+    B = cache_k.shape[0]
+    pos = pos.to(torch.int32).expand(B).contiguous()
+    return decode_attention_kernel(q, cache_k, cache_v, pos, window=window,
+                                   scale=cfg.head_dim_ ** -0.5,
+                                   n_rep=cfg.n_heads // cfg.n_kv_heads)
 
 
 def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,

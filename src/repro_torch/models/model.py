@@ -1,12 +1,16 @@
 """Model API of the port: ``build_model(cfg) -> Model``.
 
-The same façade as the JAX package's ``models/model.py`` for the entry
-points the paged serving plane calls.  Only the dense family is ported;
-the others raise, naming the ROADMAP item that ports them.
+The same façade as the JAX package's ``models/model.py`` for the serving
+entry points: the paged plane's ``prefill`` and ``decode_chunk_paged``, and
+the dense slot-cache plane's ``init_cache``, ``decode_step`` and
+``decode_chunk``.  Only the dense rms/swiglu family is ported, sliding
+windows included; the others raise, naming the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Tuple
 
@@ -21,12 +25,20 @@ class Model:
     cfg: ModelConfig
     # init(generator, device=None) -> params
     init: Callable[..., dict]
-    # prefill(params, {"tokens": [B,S]}) -> (last logits [B,V], cache)
+    # prefill(params, {"tokens": [B,S]}, pad_cache_to=None)
+    #   -> (last logits [B,V], cache)
     prefill: Callable[..., Tuple[torch.Tensor, dict]]
+    # decode_step(params, tok [B], cache) -> (logits [B,V], cache)
+    decode_step: Callable[..., Tuple[torch.Tensor, dict]]
+    # decode_chunk(params, toks [B,T], valid_len [B], cache)
+    #   -> (logits [B,T,V], cache)
+    decode_chunk: Callable[..., Tuple[torch.Tensor, dict]]
     # decode_chunk_paged(params, tokens, valid_len, slim_cache, k_pages,
     # v_pages, page_table, *, max_seq) -> (logits, slim_cache, k_pages,
     # v_pages); the pages are updated in place
     decode_chunk_paged: Callable[..., Any]
+    # init_cache(batch, max_seq, device=None) -> {"k", "v", "pos"}
+    init_cache: Callable[..., dict]
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -35,8 +47,6 @@ def _check_supported(cfg: ModelConfig) -> None:
         unsupported.append(f"family {cfg.family!r} (ROADMAP.md A10-A13)")
     if cfg.n_experts:
         unsupported.append("MoE layers (ROADMAP.md A10)")
-    if cfg.sliding_window is not None:
-        unsupported.append("sliding windows (ROADMAP.md A11)")
     if cfg.norm_type != "rms" or cfg.mlp_type != "swiglu":
         unsupported.append("layer norm / gelu MLPs (ROADMAP.md A11)")
     if unsupported:
@@ -50,9 +60,14 @@ def build_model(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda generator, device=None: transformer.init_params(
             cfg, generator, device),
-        prefill=lambda params, batch: transformer.prefill(
-            params, cfg, batch["tokens"]),
+        prefill=lambda params, batch, **kw: transformer.prefill(
+            params, cfg, batch["tokens"], **kw),
+        decode_step=lambda params, tok, cache: transformer.decode_step(
+            params, cfg, tok, cache),
+        decode_chunk=lambda params, toks, n, cache: transformer.decode_chunk(
+            params, cfg, toks, n, cache),
         decode_chunk_paged=lambda params, toks, n, cache, kp, vp, pt, **kw:
             transformer.decode_chunk_paged(params, cfg, toks, n, cache, kp,
                                            vp, pt, **kw),
+        init_cache=functools.partial(transformer.init_cache, cfg),
     )

@@ -1,15 +1,19 @@
 """Dense decoder-only transformer (the qwen3 family), serving entry points.
 
-The port of the JAX package's ``models/transformer.py`` for the paged
-serving plane: ``init_params``, the monolithic ``prefill`` and the
-paged-native ``decode_chunk_paged``.  Parameters keep the reference's tree
-and its leading layer dimension L; each layer is a loop iteration over
-views of those stacked tensors (PyTorch runs eagerly, so there is no scan).
+The port of the JAX package's ``models/transformer.py`` for serving:
+``init_params``, the monolithic ``prefill``, the paged-native
+``decode_chunk_paged``, and the dense slot-cache plane (``init_cache``,
+``decode_step``, ``decode_chunk``), sliding-window rings included.
+Parameters keep the reference's tree and its leading layer dimension L;
+each layer is a loop iteration over views of those stacked tensors
+(PyTorch runs eagerly, so there is no scan).  ``decode_step`` and
+``decode_chunk`` write the new K/V into the given cache in place and
+return it, where the reference returns a new cache.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -80,33 +84,122 @@ def _mlp_residual(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
     return x + L.mlp_block(h, lp["mlp"], cfg)
 
 
-def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Zeroed dense slot cache: k/v [L,batch,C,Hkv,Dh] with C = max_seq, or
+    min(max_seq, W) for a sliding window W (a ring), and pos [batch]."""
+    dev = resolve_device(device)
+    W = cfg.sliding_window
+    C = min(max_seq, W) if W else max_seq
+    shape = (cfg.n_layers, batch, C, cfg.n_kv_heads, cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            pad_cache_to: Optional[int] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Process the full prompt ([B,S] int, left-padded to its bucket by the
     engine).  Returns (last-token logits [B,V], cache) with cache k/v
-    [L,B,S,Hkv,Dh] and pos [B] = S."""
+    [L,B,C,Hkv,Dh] and pos [B] = S.  C = S, or min(S, W) with a sliding
+    window W, whose last C positions are ring-aligned (slot = pos % C).
+    ``pad_cache_to`` adds decode headroom to the cache (never past W)."""
     x = L.embed(tokens, params["embed"]).to(cfg.torch_dtype)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :]
     n_rep = cfg.n_heads // cfg.n_kv_heads
     scale = cfg.head_dim_ ** -0.5
+    W = cfg.sliding_window
+    C = min(S, W) if W else S
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h = L.rms_norm(x, lp["attn_norm"]["w"], cfg.norm_eps)
         q, k, v = L.attention_qkv(h, lp["attn"], cfg, positions)
         o = L.full_attention(q, L.repeat_kv(k, n_rep), L.repeat_kv(v, n_rep),
-                             causal=True, window=None, scale=scale)
+                             causal=True, window=W, scale=scale)
         x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
         x = _mlp_residual(x, lp, cfg)
-        ks.append(k)
-        vs.append(v)
+        # keep the last C positions, ring-aligned so that slot = pos % C
+        kc, vc = k[:, S - C:], v[:, S - C:]
+        if W:
+            kc = torch.roll(kc, S % C, dims=1)
+            vc = torch.roll(vc, S % C, dims=1)
+        ks.append(kc)
+        vs.append(vc)
     x = L.rms_norm(x[:, -1:], params["final_norm"]["w"], cfg.norm_eps)
     logits = L.unembed(x[:, 0], params["embed"], cfg)
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+    ks, vs = L.pad_cache_seq(torch.stack(ks), torch.stack(vs), C, W,
+                             pad_cache_to)
+    cache = {"k": ks, "v": vs,
              "pos": torch.full((B,), S, dtype=torch.int32,
                                device=tokens.device)}
     return logits, cache
+
+
+def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                cache: dict) -> Tuple[torch.Tensor, dict]:
+    """One token ([B] int) against the dense cache: every layer writes its
+    K/V at ``pos`` and attends through :func:`layers.decode_attention` (the
+    ring kernel on the card).  Returns (logits [B,V], cache) with pos + 1;
+    the cache's k/v are the input's, updated in place."""
+    B = token.shape[0]
+    dev = token.device
+    pos = cache["pos"].to(device=dev, dtype=torch.int32).expand(B)
+    x = L.embed(token[:, None], params["embed"]).to(cfg.torch_dtype)
+    positions = pos[:, None]
+    W = cfg.sliding_window
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h = L.rms_norm(x, lp["attn_norm"]["w"], cfg.norm_eps)
+        q, k, v = L.attention_qkv(h, lp["attn"], cfg, positions)
+        ck, cv = L.kv_cache_update(cache["k"][i], cache["v"][i], k, v, pos,
+                                   W)
+        o = L.decode_attention(q, ck, cv, pos, cfg, window=W)
+        x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
+        x = _mlp_residual(x, lp, cfg)
+    x = L.rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+    logits = L.unembed(x[:, 0], params["embed"], cfg)
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+def decode_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 valid_len: torch.Tensor, cache: dict
+                 ) -> Tuple[torch.Tensor, dict]:
+    """T tokens ([B,T] int) against the dense cache in one forward: each
+    sequence advances by ``valid_len[b] <= T`` positions (an idle row, 0,
+    keeps its cache row and position).  Causal within the chunk, full (or
+    windowed) attention over the cached prefix.  Ring caches attend the
+    pre-write cache plus the chunk, then write; plain caches write, then
+    attend.  Returns (logits [B,T,V], cache) with pos + valid_len; callers
+    read row ``valid_len[b]-1``.  The cache's k/v are updated in place."""
+    B, T = tokens.shape
+    dev = tokens.device
+    pos = cache["pos"].to(device=dev, dtype=torch.int32).expand(B)
+    valid_len = valid_len.to(device=dev, dtype=torch.int32)
+    x = L.embed(tokens, params["embed"]).to(cfg.torch_dtype)
+    positions = pos[:, None].long() + torch.arange(T, device=dev)[None, :]
+    valid = torch.arange(T, device=dev)[None, :] < valid_len[:, None]
+    W = cfg.sliding_window
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h = L.rms_norm(x, lp["attn_norm"]["w"], cfg.norm_eps)
+        q, k, v = L.attention_qkv(h, lp["attn"], cfg, positions)
+        ck, cv = cache["k"][i], cache["v"][i]
+        if W:
+            o = L.chunk_decode_attention_windowed(
+                q, ck, cv, k, v, pos, valid_len, positions, cfg, window=W)
+            L.kv_cache_update_chunk(ck, cv, k, v, pos, valid, W)
+        else:
+            L.kv_cache_update_chunk(ck, cv, k, v, pos, valid, W)
+            o = L.chunk_decode_attention(q, ck, cv, positions, cfg)
+        x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
+        x = _mlp_residual(x, lp, cfg)
+    x = L.rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+    logits = L.unembed(x, params["embed"], cfg)                  # [B,T,V]
+    return logits, {"k": cache["k"], "v": cache["v"],
+                    "pos": pos + valid_len}
 
 
 def decode_chunk_paged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -125,9 +218,13 @@ def decode_chunk_paged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
     The pool pages are updated in place; this replaces the reference's
     donation of the page arrays to its jitted step.  A write whose position
-    has no page (-1 entry), lies at or past ``max_seq`` or past
-    ``valid_len`` is dropped, as the reference's ``mode="drop"`` scatter
-    drops it: only in-bounds rows are indexed.
+    has no page (-1 entry), lies at or past the dense slot length (``max_seq``,
+    or the window W if smaller) or past ``valid_len`` is dropped, as the
+    reference's ``mode="drop"`` scatter drops it: only in-bounds rows are
+    indexed.  Like the reference's kernel path, the attention applies no
+    window: a windowed config is served here only when ``max_seq <= W``,
+    where no window ever masks (the engine keeps the others on the dense
+    ring plane).
 
     Returns (logits [B,T,V], {"pos": pos + valid_len}, k_pages, v_pages).
     """
@@ -139,12 +236,14 @@ def decode_chunk_paged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     positions = pos[:, None].long() + torch.arange(T, device=dev)[None, :]
     valid = torch.arange(T, device=dev)[None, :] < valid_len[:, None]
 
+    W = cfg.sliding_window
+    C = min(max_seq, W) if W else max_seq
     P = k_pages.shape[2]
     maxp = page_table.shape[1]
     pslot = torch.clamp(positions // P, max=maxp - 1)
     page_of = torch.gather(page_table.long(), 1, pslot)           # [B,T]
     off = positions % P
-    inb = valid & (page_of >= 0) & (positions < max_seq)
+    inb = valid & (page_of >= 0) & (positions < C)
     # the in-bounds rows, found once per step (one device sync)
     wb, wt = inb.nonzero(as_tuple=True)
     wpage, woff = page_of[wb, wt], off[wb, wt]

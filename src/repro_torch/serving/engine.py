@@ -1,12 +1,19 @@
-"""PyTorch inference engine: slot-based continuous batching, paged plane.
+"""PyTorch inference engine: slot-based continuous batching.
 
-The port of the JAX package's ``serving/engine.py`` for its paged-native
-data plane, the plane that serves the dense family by default:
+The port of the JAX package's ``serving/engine.py`` for the dense family,
+on both of its data planes:
 
-  * ``max_batch`` slots decode straight into the session pages of one
-    ``PagedKVPool``: each step feeds per-slot page tables to the model,
-    which writes the new K/V into the pages and attends over them with the
-    paged chunk kernel, so admission, resume and finish move no cache bytes;
+  * the paged-native plane (the default): ``max_batch`` slots decode
+    straight into the session pages of one ``PagedKVPool``; each step feeds
+    per-slot page tables to the model, which writes the new K/V into the
+    pages and attends over them with the paged chunk kernel, so admission,
+    resume and finish move no cache bytes;
+  * the dense plane (``paged_decode=False``, and windowed configs whose
+    ring wraps, ``max_seq > sliding_window``): the slots share a dense
+    per-slot cache (``model.init_cache``) stepped by ``model.decode_chunk``;
+    a resumed session is gathered from the pool into its slot row
+    (``gather_contiguous``) and a finished one written back
+    (``write_session``);
   * admission pulls from a bounded, heap-ordered priority wait queue; a new
     request resumes its session's pages (prefix reuse), adopts another
     session's indexed prefix pages (cross-session prefix sharing), or
@@ -20,10 +27,10 @@ data plane, the plane that serves the dense family by default:
 The device is ``torch.device("cuda")`` unless the caller names another;
 each step copies only the [B] greedy tokens to the host (the [B,V]
 next-token rows stay on the device unless a stochastic request samples
-from them).  Not ported yet (ROADMAP.md): the dense plane
-(``paged_decode=False``), speculative decoding (``draft_model``), the
-non-dense families, request ``extras``, and the runtime-facing plumbing of
-the bridge (KV registry hooks, completion callbacks, token streaming).
+from them).  Not ported yet (ROADMAP.md): speculative decoding
+(``draft_model``), the non-dense families and the per-token masked step
+they need, request ``extras``, and the runtime-facing plumbing of the
+bridge (KV registry hooks, completion callbacks, token streaming).
 """
 
 from __future__ import annotations
@@ -32,10 +39,11 @@ import threading
 import time
 import zlib
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
@@ -80,6 +88,44 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
+def _cache_slot_axis(key: str) -> int:
+    return 0 if key == "pos" else 1
+
+
+def set_slot(cache: dict, slot: int, row: dict) -> dict:
+    """Insert a single sequence's cache (batch dim 1) into batch ``slot``,
+    in place (the reference returns a new cache).
+
+    Row caches produced by bucketed prefill can be shorter in the seq dim
+    than the slot cache; they are zero-padded at the end (consistent with
+    the ring layout: prefill caches are unrolled when S <= window).
+    """
+    for k, v in cache.items():
+        ax = _cache_slot_axis(k)
+        r = row[k]
+        r = r.squeeze(ax) if r.dim() == v.dim() else r
+        target = tuple(s for i, s in enumerate(v.shape) if i != ax)
+        if tuple(r.shape) != target:
+            grow = [t - s for s, t in zip(r.shape, target)]
+            if len(grow) != len(target) or min(grow) < 0:
+                raise ValueError(f"row cache leaf {k}: {tuple(r.shape)} "
+                                 f"exceeds slot shape {target}")
+            r = F.pad(r, [p for g in reversed(grow) for p in (0, g)])
+        idx = [slice(None)] * v.dim()
+        idx[ax] = slot
+        v[tuple(idx)] = r.to(device=v.device, dtype=v.dtype)
+    return cache
+
+
+def get_slot(cache: dict, slot: int) -> dict:
+    """Batch ``slot`` of the cache as a batch-1 row (views, no copy)."""
+    out = {}
+    for k, v in cache.items():
+        ax = _cache_slot_axis(k)
+        out[k] = v.select(ax, slot).unsqueeze(ax)
+    return out
+
+
 class InferenceEngine:
     def __init__(self, model: Model, params: dict, *, max_batch: int = 8,
                  max_seq: int = 512, pool_pages: int = 0, page_size: int = 64,
@@ -87,8 +133,6 @@ class InferenceEngine:
                  max_queue: int = 0, paged_decode: bool = True,
                  draft_model: Optional[Model] = None,
                  device: DeviceLike = None) -> None:
-        if not paged_decode:
-            raise _not_ported("the dense plane (paged_decode=False)", "A9")
         if draft_model is not None:
             raise _not_ported("speculative decoding (draft_model)", "A9")
         self.model = model
@@ -123,15 +167,34 @@ class InferenceEngine:
         n_pages = pool_pages or (max_batch * (max_seq // page_size + 1) * 2)
         self.pool = PagedKVPool(self.cfg, n_pages=n_pages,
                                 page_size=page_size, device=self.device)
-        self._max_pages = self.pool.pages_needed(self.max_seq)
-        # slot -> pool session key the slot decodes into (anonymous requests
-        # get a synthetic key released at vacate)
+        W = self.cfg.sliding_window
+        # cross-session prefix sharing: admission and warm_session consult
+        # the pool's prefix index.  Valid only when a cache position maps
+        # 1:1 to a token prefix position: no sliding-window ring wrap.
+        self._prefix_share_ok = not W or self.max_seq <= W
+        # paged-native decode: the KV pool IS the decode cache.  Windowed
+        # configs qualify only when the ring never wraps (slot == position,
+        # so the linear page layout matches the ring layout); the others,
+        # and paged_decode=False, run the dense plane.
+        self.paged_decode = bool(paged_decode)
+        self._paged = self.paged_decode and self._prefix_share_ok
+        # dense per-slot cache length
+        self._slot_C = min(self.max_seq, W) if W else self.max_seq
+        # dense plane: the per-slot k/v [L,B,C,Hkv,Dh] (the slots' positions
+        # live on the host in _pos on both planes)
+        self.cache: Dict[str, torch.Tensor] = {}
+        self._blank_row_cache: Optional[Dict[str, torch.Tensor]] = None
+        if self._paged:
+            self._max_pages = self.pool.pages_needed(self.max_seq)
+        else:
+            full = model.init_cache(max_batch, max_seq, device=self.device)
+            self.cache = {"k": full["k"], "v": full["v"]}
+        # slot -> pool session key the slot decodes into (paged plane only;
+        # anonymous requests get a synthetic key released at vacate)
         self._slot_sid: Dict[int, str] = {}
         # slot -> token ids whose K/V occupy the slot's cache positions so
         # far (None = unknown provenance, the session stays opaque).  They
-        # key the pool's prefix index: on the paged plane of a causal
-        # family a cache position maps 1:1 to a token prefix position, so
-        # cross-session prefix sharing is always on.
+        # key the pool's prefix index.
         self._slot_tokens: Dict[int, Optional[List[int]]] = {}
 
     # ----------------------------------------------------------- submission
@@ -192,23 +255,49 @@ class InferenceEngine:
         self.metrics.prefill_tokens += S
         return logits, row_cache
 
-    def _try_resume(self, req: Request) -> Optional[int]:
-        """Prefix reuse: the number of tokens of this session resident in
-        the pool, or None when the caller must build the context cold
-        (``resume_overflows`` counts an explicit refusal).  A successful
-        resume moves no bytes: the slot adopts the session's pages."""
-        sp = self.pool.session(req.session_id)
-        if sp is None or not sp.pages or sp.tokens <= 0:
+    def _try_resume(self, req: Request
+                    ) -> Optional[Tuple[Optional[dict], int]]:
+        """Prefix reuse: ``(row, tokens)`` for this session's cache resident
+        in the pool, or None when the caller must build the context cold
+        (``resume_overflows`` counts an explicit refusal).  On the paged
+        plane a resume moves no bytes, the slot adopts the session's pages
+        and ``row`` is None; on the dense plane ``row`` is the session's
+        cache gathered into a batch-1 slot row."""
+        if self._paged:
+            sp = self.pool.session(req.session_id)
+            if sp is None or not sp.pages or sp.tokens <= 0:
+                return None
+            if sp.tokens > self.max_seq:
+                self.metrics.resume_overflows += 1
+                return None
+            return None, sp.tokens
+        got = self.pool.gather_contiguous(req.session_id, self.max_seq)
+        if got is None:
             return None
-        if sp.tokens > self.max_seq:
+        k, v, tokens = got
+        pad = self._slot_C - k.shape[1]
+        if pad < 0:
             self.metrics.resume_overflows += 1
             return None
-        return sp.tokens
+        row = {"k": F.pad(k, (0, 0, 0, 0, 0, pad))[:, None],
+               "v": F.pad(v, (0, 0, 0, 0, 0, pad))[:, None]}
+        return row, tokens
+
+    def _blank_row(self) -> Dict[str, torch.Tensor]:
+        """Zeroed single-slot cache row for chunked-prefill admission on
+        the dense plane, so a recycled slot never starts from its previous
+        occupant's row."""
+        if self._blank_row_cache is None:
+            self._blank_row_cache = {
+                k: torch.zeros_like(v[:, 0]) for k, v in self.cache.items()}
+        return self._blank_row_cache
 
     def _resumed_slot_tokens(self, req: Request,
                              tokens: int) -> Optional[List[int]]:
         """Token provenance of a resumed slot: the pool session's ids, when
         they exactly describe the restored cache positions."""
+        if not self._prefix_share_ok:
+            return None
         sp = self.pool.session(req.session_id)
         if (sp is not None and sp.tokens == tokens
                 and len(sp.token_ids) == sp.tokens):
@@ -255,15 +344,24 @@ class InferenceEngine:
                 req = self.queue.pop_next()
                 if req is None:
                     return
-            if req.session_id and req.session_id in self._slot_sid.values():
+            if (self._paged and req.session_id
+                    and req.session_id in self._slot_sid.values()):
                 # the session's pages are already the live in-place write
                 # target of an active slot; a second concurrent appender
                 # would corrupt them.  Defer until that slot finishes.
                 self.queue.push(req)
                 return
-            req.decode_path = "paged"
+            if self._paged:
+                req.decode_path = "paged"
+            elif not self._prefix_share_ok:
+                # windowed config whose ring wraps (max_seq > window): the
+                # paged plane cannot serve it (linear page layout != ring
+                # layout), so it stays on the dense ring plane
+                req.decode_path = "dense-ring"
+            else:
+                req.decode_path = "fused"
             resumed = self._try_resume(req) if req.session_id else None
-            if resumed is not None and resumed + len(req.prompt) \
+            if resumed is not None and resumed[1] + len(req.prompt) \
                     > self.max_seq - 1:
                 # the resumed suffix would run past the slot's capacity
                 # mid-prompt; rebuild the (bounded) full context cold
@@ -276,7 +374,8 @@ class InferenceEngine:
                 req.prompt = req.fallback_prompt
             if len(req.prompt) > self.max_seq - 1:
                 req.prompt = req.prompt[-(self.max_seq - 1):]
-            if resumed is None and req.session_id and len(req.prompt) > 1:
+            if (resumed is None and req.session_id and self._prefix_share_ok
+                    and len(req.prompt) > 1):
                 # cold session: another session may have indexed this
                 # prompt's prefix.  Adopt the shared pages and feed only
                 # the novel suffix (keep >= 1 token so the final position's
@@ -293,31 +392,39 @@ class InferenceEngine:
                         self.metrics.shared_prefix_tokens += matched
                         req.prompt = req.prompt[matched:]
             if resumed is not None:
-                # zero-copy resume: the slot decodes straight into the
-                # session's resident pages (shared prefix tails are
-                # privatized lazily by begin_append's copy-on-write); the
-                # prompt is fed as a suffix through the step loop
-                req.prefix_reused_tokens = resumed
+                row, tokens = resumed
+                req.prefix_reused_tokens = tokens
                 self.metrics.prefix_hits += 1
-                self.pool.protect(req.session_id)
-                self._slot_sid[slot] = req.session_id
-                self._pos[slot] = resumed
+                if self._paged:
+                    # zero-copy resume: the slot decodes straight into the
+                    # session's resident pages (shared prefix tails are
+                    # privatized lazily by begin_append's copy-on-write)
+                    self.pool.protect(req.session_id)
+                    self._slot_sid[slot] = req.session_id
+                else:
+                    set_slot(self.cache, slot, row)
+                # the prompt is fed as a suffix through the step loop
+                self._pos[slot] = tokens
                 self._pending_prompt[slot] = [int(t) for t in req.prompt]
                 self._slot_tokens[slot] = self._resumed_slot_tokens(
-                    req, resumed)
+                    req, tokens)
             elif self.prefill_chunk > 0:
                 # chunked prefill: blank row now, prompt consumed by step()
                 # in prefill_chunk-sized pieces piggybacked on decode
-                sid = req.session_id or f"__anon:{req.request_id}"
-                if req.session_id:
-                    # stale pages from a refused resume would misplace the
-                    # first in-place append: start cold
-                    self.pool.release(sid)
-                self.pool.protect(sid)
-                self._slot_sid[slot] = sid
+                if self._paged:
+                    sid = req.session_id or f"__anon:{req.request_id}"
+                    if req.session_id:
+                        # stale pages from a refused resume would misplace
+                        # the first in-place append: start cold
+                        self.pool.release(sid)
+                    self.pool.protect(sid)
+                    self._slot_sid[slot] = sid
+                else:
+                    set_slot(self.cache, slot, self._blank_row())
                 self._pos[slot] = 0
                 self._pending_prompt[slot] = [int(t) for t in req.prompt]
-                self._slot_tokens[slot] = []
+                self._slot_tokens[slot] = [] if self._prefix_share_ok \
+                    else None
                 self.metrics.prefills += 1
                 self.metrics.prefill_tokens += len(req.prompt)
             elif not self._admit_prefilled(slot, req, now):
@@ -327,9 +434,10 @@ class InferenceEngine:
 
     def _admit_prefilled(self, slot: int, req: Request, now: float) -> bool:
         """Monolithic admission: bucket prefill, write the row's K/V into
-        the session's pages, sample the first token.  Returns False when
-        the request already finished (pool exhausted, or its first token
-        met a stop condition)."""
+        the session's pages (paged plane) or the slot's cache row (dense
+        plane), sample the first token.  Returns False when the request
+        already finished (pool exhausted, or its first token met a stop
+        condition)."""
         logits, row_cache = self._prefill(req)
         greedy = torch.argmax(logits, dim=-1).cpu().numpy()
         tok = self._sample_slot(req, logits, 0, greedy)
@@ -340,23 +448,27 @@ class InferenceEngine:
         bucket = min(bucket_len(S), self.max_seq)
         # left-aligned bucket prefill: pad token 0's K/V enters the leading
         # positions and is part of the provenance
-        ids = [0] * (bucket - S) + [int(t) for t in req.prompt]
-        sid = req.session_id or f"__anon:{req.request_id}"
-        if req.session_id:
-            self.pool.release(sid)
+        ids = ([0] * (bucket - S) + [int(t) for t in req.prompt]
+               if self._prefix_share_ok else None)
         self.metrics.tokens_generated += 1
-        if not self.pool.write_session(sid, row_cache["k"][:, 0],
-                                       row_cache["v"][:, 0], bucket, now,
-                                       token_ids=ids):
-            # pool exhausted (residents all protected/pinned): deliver what
-            # we have instead of wedging the slot
-            self.metrics.paged_append_failures += 1
-            self.metrics.completed += 1
-            req.finished = True
-            req.finished_at = time.monotonic()
-            return False
-        self.pool.protect(sid)
-        self._slot_sid[slot] = sid
+        if self._paged:
+            sid = req.session_id or f"__anon:{req.request_id}"
+            if req.session_id:
+                self.pool.release(sid)
+            if not self.pool.write_session(sid, row_cache["k"][:, 0],
+                                           row_cache["v"][:, 0], bucket, now,
+                                           token_ids=ids):
+                # pool exhausted (residents all protected/pinned): deliver
+                # what we have instead of wedging the slot
+                self.metrics.paged_append_failures += 1
+                self.metrics.completed += 1
+                req.finished = True
+                req.finished_at = time.monotonic()
+                return False
+            self.pool.protect(sid)
+            self._slot_sid[slot] = sid
+        else:
+            set_slot(self.cache, slot, row_cache)
         self._pos[slot] = bucket
         self._slot_tokens[slot] = ids
         if (len(req.generated) >= req.sampling.max_new_tokens
@@ -384,22 +496,33 @@ class InferenceEngine:
         toks = toks[-(self.max_seq - 1):]       # respect the context budget
         req = Request.make(toks, session_id=session_id)
         now = time.monotonic()
+        W = self.cfg.sliding_window
+        bucket = min(bucket_len(len(toks)), self.max_seq)
         with self._lock:
-            # resident-prefix fast path: pages covering a prefix of the
-            # transcript (this session's own, or another session's via the
-            # index) make the replay partial or entirely redundant
-            warmed = self._warm_from_resident(session_id, toks, now)
-            if warmed:
-                return warmed
-            # right-aligned prefill: under causal attention the trailing
-            # pads never touch the first len(toks) positions, so the stored
-            # prefix is exact
-            _logits, row_cache = self._prefill(req, align="right")
-            tokens = len(toks)
+            if self._prefix_share_ok:
+                # resident-prefix fast path: pages covering a prefix of the
+                # transcript (this session's own, or another session's via
+                # the index) make the replay partial or entirely redundant
+                warmed = self._warm_from_resident(session_id, toks, now)
+                if warmed:
+                    return warmed
+            if not W or bucket <= W:
+                # right-aligned prefill: under causal attention the trailing
+                # pads never touch the first len(toks) positions, so the
+                # stored prefix is exact
+                _logits, row_cache = self._prefill(req, align="right")
+                tokens = len(toks)
+                ids = toks if self._prefix_share_ok else None
+            else:
+                # the bucket wraps the ring: store the left-padded bucket's
+                # ring, opaque
+                _logits, row_cache = self._prefill(req)
+                tokens = bucket
+                ids = None
             if not self.pool.write_session(
                     session_id, row_cache["k"][:, 0, :tokens],
                     row_cache["v"][:, 0, :tokens], tokens, now,
-                    token_ids=toks):
+                    token_ids=ids):
                 return 0
         return tokens
 
@@ -431,34 +554,45 @@ class InferenceEngine:
 
     def _extend_session(self, session_id: str, toks: List[int],
                         resident: int, now: float) -> int:
-        """Suffix-only warm: feed ``toks[resident:]`` through batch-1
-        paged chunk steps on top of the session's resident pages.  The
-        reference gathers the pages into a dense row and runs its dense
-        chunk step; the port appends in place through the same
-        ``begin_append``/``commit_append`` protocol as a decoding slot,
-        which leaves the same K/V behind."""
+        """Suffix-only warm: gather the session's resident cache into a
+        batch-1 dense row, feed ``toks[resident:]`` through batch-1
+        ``decode_chunk`` steps and store the extended row with one
+        ``write_session``, which dedups full pages against the prefix index
+        and is all-or-nothing: a failure leaves the session as it was."""
         suffix = toks[resident:]
-        if resident + len(suffix) > self.max_seq:
+        C = self._slot_C
+        if resident + len(suffix) > min(C, self.max_seq):
             return 0
-        sp = self.pool.session(session_id)
-        if sp is None or sp.tokens != resident:
+        got = self.pool.gather_contiguous(session_id, self.max_seq)
+        if got is None:
             return 0
+        k, v, cached = got
+        if cached != resident:
+            return 0
+        pad = C - k.shape[1]
+        if pad < 0:
+            return 0
+        dev = self.device
+        row = {"k": F.pad(k, (0, 0, 0, 0, 0, pad))[:, None],
+               "v": F.pad(v, (0, 0, 0, 0, 0, pad))[:, None],
+               "pos": torch.tensor([resident], dtype=torch.int32,
+                                   device=dev)}
         T = max(1, self.prefill_chunk or 8)
         for i in range(0, len(suffix), T):
             n = min(T, len(suffix) - i)
-            # begin_append never evicts the session it extends
-            if not self.pool.begin_append(session_id, n, now):
-                return 0
             tk = np.zeros((1, T), np.int64)
             tk[0, :n] = suffix[i:i + n]
-            pt = self.pool.page_table(session_id, self._max_pages)[None]
-            self._paged_forward(tk, np.asarray([n], np.int32),
-                                np.asarray([resident + i], np.int32), pt)
-            self.pool.commit_append(session_id, n, token_ids=suffix[i:i + n],
-                                    now=now)
+            _logits, row = self.model.decode_chunk(
+                self.params, torch.from_numpy(tk).to(dev),
+                torch.tensor([n], dtype=torch.int32, device=dev), row)
+        tokens = resident + len(suffix)
+        if not self.pool.write_session(session_id, row["k"][:, 0, :tokens],
+                                       row["v"][:, 0, :tokens], tokens, now,
+                                       token_ids=toks):
+            return 0
         self.metrics.prefills += 1
         self.metrics.prefill_tokens += len(suffix)
-        return resident + len(suffix)
+        return tokens
 
     # ----------------------------------------------------------------- step
     def step(self) -> int:
@@ -489,7 +623,10 @@ class InferenceEngine:
                 return 0
             prefilling = any(self._pending_prompt.get(i) for i in active)
             budget = max(1, self.prefill_chunk) if prefilling else 1
-            sampled = self._step_paged(active, budget)
+            if self._paged:
+                sampled = self._step_paged(active, budget)
+            else:
+                sampled = self._step_fused(active, budget)
             now = time.monotonic()
             for i in active:
                 req = self.slots[i]
@@ -523,16 +660,13 @@ class InferenceEngine:
         rows = logits[torch.arange(logits.shape[0], device=dev), last]
         return rows, torch.argmax(rows, dim=-1)
 
-    def _step_paged(self, active: List[int], budget: int) -> set:
-        """One paged-native fused step.
-
-        The chunk width is sized to need and rounded to a power of two (so
-        a short prompt never pays a full-width chunk step).
-        ``begin_append`` reserves (and copy-on-write privatizes) each
-        advancing session's pages, the model writes the new K/V into them
-        by page table, and ``commit_append`` publishes the new tokens
-        (re-keying the prefix index).  A slot whose reservation fails is
-        aborted explicitly — counted, finished with what it has."""
+    def _plan_chunk(self, active: List[int], budget: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """The chunk every plane's step feeds: prefilling slots consume up
+        to ``budget`` prompt tokens, decoding slots advance one, idle slots
+        none.  The chunk width is sized to the actual need and rounded up
+        to a power of two (so a short prompt never pays a full-width chunk
+        step).  Returns (tokens [B,T], valid lengths [B])."""
         pending = self._pending_prompt
         need = 1
         for i in active:
@@ -555,6 +689,37 @@ class InferenceEngine:
                 req = self.slots[i]
                 toks[i, 0] = req.generated[-1] if req.generated else 0
                 valid[i] = 1
+        return toks, valid
+
+    def _sample_ready(self, active: List[int], valid: np.ndarray,
+                      rows: torch.Tensor, greedy: torch.Tensor) -> set:
+        """Sample the next token of every slot that finished its prompt
+        this step; returns those slots."""
+        ready = [i for i in active
+                 if valid[i] and i not in self._pending_prompt]
+        if not ready:
+            return set()
+        greedy_np = greedy.cpu().numpy()
+        sampled: set = set()
+        for i in ready:
+            req = self.slots[i]
+            tok = self._sample_slot(req, rows, i, greedy_np)
+            req.generated.append(tok)
+            if req.first_token_at < 0:
+                req.first_token_at = time.monotonic()
+            self.metrics.tokens_generated += 1
+            sampled.add(i)
+        return sampled
+
+    def _step_paged(self, active: List[int], budget: int) -> set:
+        """One paged-native fused step.
+
+        ``begin_append`` reserves (and copy-on-write privatizes) each
+        advancing session's pages, the model writes the new K/V into them
+        by page table, and ``commit_append`` publishes the new tokens
+        (re-keying the prefix index).  A slot whose reservation fails is
+        aborted explicitly — counted, finished with what it has."""
+        toks, valid = self._plan_chunk(active, budget)
         now = time.monotonic()
         aborted: List[int] = []
         for i in active:
@@ -586,20 +751,29 @@ class InferenceEngine:
                                         now=now)
         for i in aborted:
             self._finish_slot(i, now)
-        ready = [i for i in active if valid[i] and i not in pending]
-        if not ready:
-            return set()
-        greedy_np = greedy.cpu().numpy()
-        sampled: set = set()
-        for i in ready:
-            req = self.slots[i]
-            tok = self._sample_slot(req, rows, i, greedy_np)
-            req.generated.append(tok)
-            if req.first_token_at < 0:
-                req.first_token_at = time.monotonic()
-            self.metrics.tokens_generated += 1
-            sampled.add(i)
-        return sampled
+        return self._sample_ready(active, valid, rows, greedy)
+
+    def _step_fused(self, active: List[int], budget: int) -> set:
+        """One fused chunk forward over the dense slot cache
+        (``model.decode_chunk``), the dense plane's step."""
+        toks, valid = self._plan_chunk(active, budget)
+        if self._prefix_share_ok:
+            for i in active:
+                ids = self._slot_tokens.get(i)
+                if ids is not None and valid[i]:
+                    ids.extend(int(t) for t in toks[i, :valid[i]])
+        dev = self.device
+        valid_t = torch.from_numpy(valid).to(dev)
+        cache = dict(self.cache, pos=torch.from_numpy(self._pos).to(dev))
+        logits, _cache = self.model.decode_chunk(
+            self.params, torch.from_numpy(toks).to(dev), valid_t, cache)
+        self._pos += valid
+        self.metrics.decode_steps += 1
+        # next-token distribution sits at each slot's last valid row
+        last = torch.clamp(valid_t.long() - 1, min=0)
+        rows = logits[torch.arange(logits.shape[0], device=dev), last]
+        return self._sample_ready(active, valid, rows,
+                                  torch.argmax(rows, dim=-1))
 
     def _vacate_slot(self, slot: int) -> None:
         """Free a batch slot and every per-slot residue (pending prompt,
@@ -632,9 +806,20 @@ class InferenceEngine:
             if req.session_id:
                 self.pool.release(req.session_id)
         else:
-            # nothing to persist: the pool pages ARE the session cache,
-            # already current through commit_append
             self.metrics.completed += 1
+            if not self._paged and req.session_id:
+                # dense plane: persist the slot's cache for prefix reuse on
+                # follow-ups (on the paged plane the pool pages ARE the
+                # session cache, already current through commit_append)
+                tokens = int(self._pos[slot])
+                row = get_slot(self.cache, slot)
+                ids = self._slot_tokens.get(slot)
+                if ids is not None and len(ids) != tokens:
+                    ids = None      # provenance lost: keep the write opaque
+                if tokens <= self.max_seq:
+                    self.pool.write_session(
+                        req.session_id, row["k"][:, 0, :tokens],
+                        row["v"][:, 0, :tokens], tokens, now, token_ids=ids)
             self._vacate_slot(slot)
 
     def cancel_request(self, request_id: str) -> bool:
@@ -689,7 +874,7 @@ class InferenceEngine:
                 "expired": m.expired,
                 "expired_rejects": self.queue.expired_rejects,
                 "prefill_chunk": self.prefill_chunk,
-                "paged_decode": True,
+                "paged_decode": self._paged,
                 "device": str(self.device),
                 "decode_tokens_per_step": m.decode_tokens_per_step,
                 "resume_overflows": m.resume_overflows,

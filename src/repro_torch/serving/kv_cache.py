@@ -495,9 +495,9 @@ class PagedKVPool:
     def gather_contiguous(self, session_id: str, max_seq: int):
         """Materialize [L, max_seq, Hkv, Dh] dense K/V.
 
-        Not on the serving path: paged-native decode consumes page tables
-        directly.  This is the debug path that tests compare cache bytes
-        through."""
+        Not on the paged plane's hot path (paged-native decode consumes
+        page tables directly).  The dense plane's resume, the suffix-only
+        warm extension and the tests that compare cache bytes use it."""
         with self._lock:
             sp = self._sessions.get(session_id)
             if sp is None or not sp.pages:

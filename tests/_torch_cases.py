@@ -1,9 +1,11 @@
 """Kernel test cases shared by the port's CPU and card kernel tests.
 
-The cases cover the hazards of both kernels: permuted page tables, -1
+The cases cover the hazards of the kernels: permuted page tables, -1
 padding, ragged positions, partial tail pages, chunk lengths and sequence
-lengths that are no multiple of any tile, and a windowed and a non-causal
-attention.  Inputs come from numpy seeds.
+lengths that are no multiple of any tile, a windowed and a non-causal
+attention, and ring caches whose positions wrap past the cache length
+(twice), with windows below, at and above it.  Inputs come from numpy
+seeds.
 """
 
 import numpy as np
@@ -44,4 +46,30 @@ FLASH_CASES = [
     (1, 2, 100, 100, 16, True, None),
     (2, 2, 70, 70, 32, True, 9),
     (3, 1, 33, 45, 32, False, None),
+]
+
+
+def ring_case(seed, B, C, Hkv, n_rep, D):
+    """Random q [B,1,H,D] and caches [B,C,Hkv,D]; pos in [1, 2C), so rows
+    sit below, at and past the cache length (the ring has wrapped)."""
+    rng = np.random.default_rng(seed)
+    H = Hkv * n_rep
+    q = rng.standard_normal((B, 1, H, D)).astype(np.float32)
+    ck = rng.standard_normal((B, C, Hkv, D)).astype(np.float32)
+    cv = rng.standard_normal((B, C, Hkv, D)).astype(np.float32)
+    pos = rng.integers(1, 2 * C, B).astype(np.int32)
+    return q, ck, cv, pos
+
+
+RING_CASES = [
+    # seed, B, C, Hkv, n_rep, D, window: the reference's own decode-ring
+    # sweep (tests/test_kernels.py), windows None and 48
+    (0, 2, 128, 1, 4, 64, None),
+    (1, 2, 128, 1, 4, 64, 48),
+    (2, 3, 256, 2, 2, 32, None),
+    (3, 3, 256, 2, 2, 32, 48),
+    (4, 1, 96, 4, 1, 128, None),
+    (5, 1, 96, 4, 1, 128, 48),
+    # a window above the cache length and positions past 2C
+    (6, 4, 40, 2, 2, 32, 64),
 ]

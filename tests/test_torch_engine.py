@@ -7,8 +7,9 @@ paged attention.  The trace (numpy seed) mixes sessions with follow-up
 turns (resume), a shared system prefix (cross-session prefix sharing), an
 anonymous request and more requests than slots, under chunked and
 monolithic (``prefill_chunk=0``) admission, then warms sessions through
-``warm_session``.  Greedy tokens, ``warm_session`` results and the
-``EngineMetrics`` counters must be identical.
+``warm_session``.  Greedy tokens, ``warm_session`` results, the
+``EngineMetrics`` counters and the pool's bookkeeping (``pool.stats`` and
+the free-page count) must be identical.
 """
 
 import numpy as np
@@ -86,6 +87,10 @@ def _counters(engine):
     return {k: getattr(engine.metrics, k) for k in COUNTERS}
 
 
+def _pool_state(engine):
+    return dict(engine.pool.stats), engine.pool.free_pages()
+
+
 @pytest.mark.parametrize("prefill_chunk", [4, 0])
 def test_same_trace_same_tokens_and_counters(models, prefill_chunk):
     jmodel, jparams, tmodel, tparams = models
@@ -97,6 +102,7 @@ def test_same_trace_same_tokens_and_counters(models, prefill_chunk):
     got = _serve(teng, TRequest, TSampling, waves)
     assert got == want
     assert _counters(teng) == _counters(jeng)
+    assert _pool_state(teng) == _pool_state(jeng)
     assert teng.metrics.prefix_hits > 0 and teng.metrics.shared_prefix_hits > 0
     teng.pool.check_invariants()
 
@@ -123,6 +129,7 @@ def test_warm_session_matches(models):
     assert results[1] == results[0]
     assert tokens[1] == tokens[0]
     assert _counters(engines[1]) == _counters(engines[0])
+    assert _pool_state(engines[1]) == _pool_state(engines[0])
     assert engines[1].metrics.prefix_hits == 2
     engines[1].pool.check_invariants()
 

@@ -14,11 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import FLASH_CASES, PAGED_CASES, paged_case
+from _torch_cases import (FLASH_CASES, PAGED_CASES, RING_CASES, paged_case,
+                          ring_case)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_bhsd_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
-from repro_torch.kernels.paged_attention.ref import paged_decode_chunk_ref
+from repro_torch.kernels.paged_attention.ref import (decode_ring_ref,
+                                                     paged_decode_chunk_ref)
 
 CARD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
             torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
@@ -26,6 +28,9 @@ CARD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 # P=64, the engine's default pool of 272 pages, 16 table entries
 MAIN_PAGED = (9, 8, 8, 8, 2, 128, 64, 272, 16)
 MAIN_FLASH = (9, 16, 500, 500, 128, True, None)
+# decode_step's ring at full width: B=8, a 1024-slot cache, 8 kv heads of
+# 2 queries, D=128; no window, and a 256-slot ring with a 256 window
+MAIN_RING = [(9, 8, 1024, 8, 2, 128, None), (10, 8, 256, 8, 2, 128, 256)]
 
 
 @pytest.fixture
@@ -71,6 +76,25 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", RING_CASES + MAIN_RING)
+def test_ring_kernel_matches_plain(cuda_device, dtype, case):
+    seed, B, C, Hkv, n_rep, D, window = case
+    arrs = ring_case(seed, B, C, Hkv, n_rep, D)
+    q, ck, cv = (torch.from_numpy(a).to(cuda_device, dtype)
+                 for a in arrs[:3])
+    pos = torch.from_numpy(arrs[3]).to(cuda_device)
+    n = paged_ops.decode_attention_kernel.launches
+    got = paged_ops.decode_attention_kernel(q, ck, cv, pos, window=window,
+                                            scale=D ** -0.5, n_rep=n_rep)
+    torch.cuda.synchronize()
+    assert paged_ops.decode_attention_kernel.launches == n + 1
+    want = decode_ring_ref(q, ck, cv, pos, scale=D ** -0.5, n_rep=n_rep,
+                           window=window)
+    torch.testing.assert_close(got.float(), want.float(), **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros(2, 1, 4, 32, device=cuda_device, dtype=torch.float16)
     kp = torch.zeros(4, 8, 2, 32, device=cuda_device, dtype=torch.float16)
@@ -84,3 +108,24 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     x = torch.zeros(2, 8, 256, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         flash_ops.flash_attention_bhsd(x, x, x)
+    ring = dict(window=None, scale=1.0, n_rep=2)
+    ck = torch.zeros(2, 8, 2, 32, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        paged_ops.decode_attention_kernel(q, ck, ck, pos, **ring)
+    q, ck = q.float(), ck.float()
+    with pytest.raises(ValueError, match="int32"):
+        paged_ops.decode_attention_kernel(q, ck, ck, pos.long(), **ring)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_ops.decode_attention_kernel(q, ck.transpose(1, 2).contiguous()
+                                          .transpose(1, 2), ck, pos, **ring)
+    with pytest.raises(ValueError, match="head dim"):
+        paged_ops.decode_attention_kernel(q[..., :30].contiguous(),
+                                          ck[..., :30].contiguous(),
+                                          ck[..., :30].contiguous(), pos,
+                                          **ring)
+    with pytest.raises(ValueError, match="shared memory"):
+        paged_ops.decode_attention_kernel(
+            torch.zeros(1, 1, 256, 128, device=cuda_device),
+            torch.zeros(1, 8, 1, 128, device=cuda_device),
+            torch.zeros(1, 8, 1, 128, device=cuda_device), pos[:1],
+            window=None, scale=1.0, n_rep=256)
