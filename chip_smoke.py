@@ -9,7 +9,8 @@ the run with a non-zero exit and no result line:
 1. build   — compile every CUDA kernel of the port from ``src/repro_torch/
              csrc/`` (one ``nvcc`` per source, all at once).
 2. kernels — hold each kernel against its plain PyTorch version on the card
-             in bf16 at the shapes of the path that runs it, and time
+             in bf16 at the shapes of the path that runs it (the expert
+             FFN also bitwise across row counts), and time
              kernel, plain version and a PyTorch yardstick (``library_ms``,
              never used by the port) against the card's bound.
 3. serve   — qwen3-0.6b at full width (random weights from a seed) served by
@@ -29,8 +30,19 @@ the run with a non-zero exit and no result line:
              float32.
 6. dense   — the serve trace on an ``InferenceEngine(paged_decode=False)``
              (the dense slot-cache plane, stepped by ``decode_chunk``, which
-             launches none of the kernels); follow-up turns resume through
-             ``gather_contiguous``.
+             launches none of the attention kernels); follow-up turns resume
+             through ``gather_contiguous``.
+7. moe     — granite-moe-1b-a400m at full width (random weights from a
+             seed; qwen3-0.6b freed first): the serve trace on the paged
+             plane and on the dense plane, in bf16 (timed; 10 steps of a
+             third wave profiled on the paged plane) and in float32 (the
+             kernels in f32), the counters set to 0 before each run and
+             read after it: 24 paged chunk launches per paged step, 24
+             expert-FFN launches per forward.  The float32 planes must give
+             the same greedy tokens (or differ only at a tie); the bf16
+             planes' agreement is reported.  Then next-token logits of two
+             prompts through prefill, a paged step and ``decode_step`` on
+             the card, bf16 and float32, against the CPU in float32.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit (``nvidia-smi``), and ``{"ok": true, "device": {...}}``.
@@ -177,6 +189,13 @@ def ring_cost(visible, H, Hkv, D):
     return n_bytes, 4 * D * H * n_vis
 
 
+def moe_cost(E, C, D, F):
+    """Bytes and flops of one expert-FFN call on a [C,D] token block
+    expanded over E experts: every expert's three weight matrices, the
+    block once and the [E,C,D] output (bf16); 6*E*C*D*F flops."""
+    return 2 * (3 * E * D * F + C * D + E * C * D), 6 * E * C * D * F
+
+
 # ----------------------------------------------------------------- phases
 def phase_build(_build):
     t0 = time.perf_counter()
@@ -192,7 +211,7 @@ def phase_build(_build):
 
 
 def phase_kernels(torch, timer, paged_ops, paged_ref, flash_ops, flash_ref,
-                  cfg, decode_batch, decode_ctx):
+                  moe_ops, moe_ref, cfg, moe_cfg, decode_batch, decode_ctx):
     F = torch.nn.functional
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     n_rep = H // Hkv
@@ -382,7 +401,77 @@ def phase_kernels(torch, timer, paged_ops, paged_ref, flash_ops, flash_ref,
         source="src/repro_torch/csrc/decode_ring.cu",
         replaces="src/repro/kernels/paged_attention/paged_attention.py:81",
         max_abs_err=err, **timings["decode"])
+    rows["moe_ffn"] = moe_kernel_rows(torch, timer, moe_ops, moe_ref, moe_cfg)
     return rows
+
+
+def moe_kernel_rows(torch, timer, moe_ops, moe_ref, cfg):
+    """The expert FFN at granite-moe-1b-a400m's full width (E=32, D=1024,
+    F=512, bf16, the model's init scales): the dropless MoE's token block
+    expanded over the experts at C=8 (a decode step of 8 slots) and C=64
+    (a chunked-prefill step, 8 slots x 8 tokens), and a contiguous [E,37,D]
+    buffer (a row-tile tail); then the C=64 launch's rows against the same
+    rows launched as C=1 and C=8, bitwise; timed at C=64 and C=8."""
+    F = torch.nn.functional
+    E, D, Fe = cfg.n_experts, cfg.d_model, cfg.d_expert
+    g = torch.Generator(device="cuda").manual_seed(13)
+
+    def randn(*shape, std=(2.0 / (D + Fe)) ** 0.5):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(
+            torch.bfloat16)
+
+    w = (randn(E, D, Fe), randn(E, D, Fe), randn(E, Fe, D))
+    err, blocks = 0.0, {}
+    for C, expanded in ((8, True), (64, True), (37, False)):
+        x = randn(C if expanded else E * C, D, std=1.0)
+        xe = x[None].expand(E, C, D) if expanded else x.view(E, C, D)
+        got = moe_ops.moe_ffn(xe, *w)
+        torch.cuda.synchronize()
+        want = moe_ref.moe_ffn_ref(xe, *w)
+        e = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), **KERNEL_TOL)
+        print(f"[kernels] moe_ffn E={E} C={C} D={D} F={Fe} "
+              f"{'expanded' if expanded else 'contiguous'} max_abs_err="
+              f"{e:.3e} |out|max={want.float().abs().max().item():.3f} "
+              f"tol={KERNEL_TOL} ok={ok}")
+        check(ok and bool(torch.isfinite(got).all()),
+              f"moe_ffn disagrees with its plain version (C={C})")
+        err = max(err, e)
+        blocks[C] = (x, got)
+    x, full = blocks[64]
+    for width in (1, 8):
+        for c0 in range(0, 64, width):
+            part = moe_ops.moe_ffn(x[c0:c0 + width][None].expand(E, width, D),
+                                   *w)
+            check(torch.equal(part, full[:, c0:c0 + width]),
+                  f"moe_ffn rows {c0}..{c0 + width - 1} launched as C={width} "
+                  f"differ from the same rows of the C=64 launch")
+    print("[kernels] moe_ffn: the 64 rows of the C=64 launch equal, bitwise, "
+          "the same rows launched as C=1 (64 launches) and as C=8 (8)")
+
+    timings = {}
+    for C in (64, 8):
+        xe = randn(C, D, std=1.0)[None].expand(E, C, D)
+        n_bytes, flops = moe_cost(E, C, D, Fe)
+        bound, by = bound_ms(n_bytes, flops)
+
+        def library():
+            # three bmm and silu in bf16: a yardstick, never the port's path
+            return torch.bmm(F.silu(torch.bmm(xe, w[0])) * torch.bmm(xe, w[1]),
+                             w[2])
+
+        t = {"ms": timer.ms(lambda: moe_ops.moe_ffn(xe, *w)),
+             "plain_ms": timer.ms(lambda: moe_ref.moe_ffn_ref(xe, *w)),
+             "library_ms": timer.ms(library),
+             "bound_ms": bound, "bound_by": by}
+        timings[C] = t
+        print(f"[kernels] moe_ffn timed E={E} C={C} D={D} F={Fe} (token "
+              f"block expanded): ms={t['ms']:.4f} plain_ms="
+              f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+              f"bound_ms={bound:.5f} ({by}; {n_bytes} B, {flops} flop)")
+    return dict(source="src/repro_torch/csrc/moe_ffn.cu",
+                replaces="src/repro/kernels/moe_ffn/moe_ffn.py:50",
+                max_abs_err=err, **timings[64])
 
 
 def serve_trace(vocab):
@@ -402,6 +491,26 @@ def serve_trace(vocab):
     wave2 += [(f"user{i}", np.concatenate([sys_prompt, toks(32, 384)]))
               for i in range(4, 8)]
     return [wave1, wave2]
+
+
+def run_trace(engine, vocab, Request, sampling):
+    """Serve both waves of :func:`serve_trace`, each until the engine is
+    idle.  Returns (requests, per-step host ms, wall seconds); every step
+    ends with the greedy tokens copied to the host, which synchronises."""
+    reqs, step_ms = [], []
+    t0 = time.perf_counter()
+    for wave in serve_trace(vocab):
+        for sid, prompt in wave:
+            req = Request.make(prompt, session_id=sid, sampling=sampling)
+            engine.submit(req)
+            reqs.append(req)
+        while True:
+            t = time.perf_counter()
+            n = engine.step()
+            if n == 0 and len(engine.queue) == 0:
+                break
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    return reqs, step_ms, time.perf_counter() - t0
 
 
 def profile_window(torch, engine, cfg, Request, sampling, n_warm=4,
@@ -466,20 +575,8 @@ def phase_serve(torch, rt, cfg, counters):
     for c in counters.values():
         c.launches = 0
     greedy = SamplingParams(max_new_tokens=32)
-    reqs, step_ms = [], []
-    t_serve = time.perf_counter()
-    for wave in serve_trace(cfg.vocab_size):
-        for sid, prompt in wave:
-            req = Request.make(prompt, session_id=sid, sampling=greedy)
-            engine.submit(req)
-            reqs.append(req)
-        while True:
-            t = time.perf_counter()
-            n = engine.step()
-            if n == 0 and len(engine.queue) == 0:
-                break
-            step_ms.append((time.perf_counter() - t) * 1e3)
-    serve_s = time.perf_counter() - t_serve
+    reqs, step_ms, serve_s = run_trace(engine, cfg.vocab_size, Request,
+                                       greedy)
     m = engine.metrics
     paged_after_serve = counters["paged_decode_chunk"].launches
     served = dict(decode_steps=m.decode_steps, tokens=m.tokens_generated,
@@ -568,6 +665,22 @@ def compare_logits(torch, name, card, ref, tol=LOGITS_REL_L2_TOL,
     return a == b, gap, err
 
 
+def first_step_logits(torch, rt, mdl, prm, dev, prompt):
+    """Next-token logits [V] (float32, on the host) of ``prompt`` through a
+    monolithic prefill and through one paged chunk step over a fresh
+    pool."""
+    n = len(prompt)
+    toks = torch.from_numpy(prompt[None]).to(dev)
+    logits, _ = mdl.prefill(prm, {"tokens": toks})
+    pool = rt.PagedKVPool(mdl.cfg, n_pages=2, page_size=64, device=dev)
+    pt = torch.tensor([[0, -1]], dtype=torch.int32, device=dev)
+    step, _, _, _ = mdl.decode_chunk_paged(
+        prm, toks, torch.tensor([n], dtype=torch.int32, device=dev),
+        {"pos": torch.zeros(1, dtype=torch.int32, device=dev)},
+        pool.k, pool.v, pt, max_seq=1024)
+    return logits[0].float().cpu(), step[0, -1].float().cpu()
+
+
 def phase_check(torch, rt, model, params, cfg, cpu_params):
     """First-step logits on the card (bf16, kernels) against the CPU
     (float32, plain versions), through prefill and through a paged step."""
@@ -575,19 +688,9 @@ def phase_check(torch, rt, model, params, cfg, cpu_params):
     rng = np.random.default_rng(2)
     for n in (11, 19):
         prompt = rng.integers(0, cfg.vocab_size, n)
-        outs = []
-        for mdl, prm, dev in ((model, params, "cuda"),
-                              (cpu_model, cpu_params, "cpu")):
-            toks = torch.from_numpy(prompt[None]).to(dev)
-            logits, _ = mdl.prefill(prm, {"tokens": toks})
-            pool = rt.PagedKVPool(mdl.cfg, n_pages=2, page_size=64,
-                                  device=dev)
-            pt = torch.tensor([[0, -1]], dtype=torch.int32, device=dev)
-            step, _, _, _ = mdl.decode_chunk_paged(
-                prm, toks, torch.tensor([n], dtype=torch.int32, device=dev),
-                {"pos": torch.zeros(1, dtype=torch.int32, device=dev)},
-                pool.k, pool.v, pt, max_seq=1024)
-            outs.append((logits[0].float().cpu(), step[0, -1].float().cpu()))
+        outs = [first_step_logits(torch, rt, mdl, prm, dev, prompt)
+                for mdl, prm, dev in ((model, params, "cuda"),
+                                      (cpu_model, cpu_params, "cpu"))]
         for (card, ref), name in zip(zip(*outs), ("prefill", "paged step")):
             compare_logits(torch, f"prompt of {n}: {name}", card, ref)
 
@@ -677,21 +780,8 @@ def phase_dense(torch, rt, cfg, model, params, counters, paged_tokens):
           "paged_decode=False did not select the dense plane")
     for c in counters.values():
         c.launches = 0
-    greedy = SamplingParams(max_new_tokens=32)
-    reqs, step_ms = [], []
-    t0 = time.perf_counter()
-    for wave in serve_trace(cfg.vocab_size):
-        for sid, prompt in wave:
-            req = Request.make(prompt, session_id=sid, sampling=greedy)
-            engine.submit(req)
-            reqs.append(req)
-        while True:
-            t = time.perf_counter()
-            n = engine.step()
-            if n == 0 and len(engine.queue) == 0:
-                break
-            step_ms.append((time.perf_counter() - t) * 1e3)
-    wall = time.perf_counter() - t0
+    reqs, step_ms, wall = run_trace(engine, cfg.vocab_size, Request,
+                                    SamplingParams(max_new_tokens=32))
     launches = {name: c.launches for name, c in counters.items()}
     m = engine.metrics
     check(all(r.finished and len(r.generated) == 32 for r in reqs),
@@ -715,6 +805,245 @@ def phase_dense(torch, rt, cfg, model, params, counters, paged_tokens):
     torch.cuda.empty_cache()
 
 
+class ForwardTally:
+    """Counts the calls of a model's forward entry points, which the
+    engine looks up on the model at every call, and the chunk widths its
+    steps feed."""
+
+    NAMES = ("prefill", "decode_step", "decode_chunk", "decode_chunk_paged")
+
+    def __init__(self, model):
+        self.reset()
+        for name in self.NAMES:
+            setattr(model, name, self._counted(name, getattr(model, name)))
+
+    def _counted(self, name, fn):
+        def counted(*args, **kw):
+            self.calls[name] += 1
+            if name.startswith("decode_chunk"):
+                self.widths.add(int(args[1].shape[1]))
+            return fn(*args, **kw)
+        return counted
+
+    def reset(self):
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self.widths = set()
+
+    @property
+    def total(self) -> int:
+        return sum(self.calls.values())
+
+
+def record_next_token_rows(engine):
+    """Keep on the device, per request id, the next-token logits row behind
+    each token the engine samples (the engine's sampling step, wrapped)."""
+    rows_of = {}
+    sample_ready = engine._sample_ready
+
+    def recording(active, valid, rows, greedy):
+        for i in active:
+            if valid[i] and i not in engine._pending_prompt:
+                rows_of.setdefault(engine.slots[i].request_id, []).append(
+                    rows[i].clone())
+        return sample_ready(active, valid, rows, greedy)
+
+    engine._sample_ready = recording
+    return rows_of
+
+
+def planes_agree(torch, label, paged, dense, tol=None):
+    """Greedy tokens of one trace on the paged and the dense plane, with the
+    logits rows behind them ([(tokens, rows)] per request, in trace order).
+    While a request's tokens agree, both planes saw the same context: each
+    row pair must agree to relative L2 ``tol``.  Where its tokens first
+    differ, the paged plane's logits of the two tokens must be tied within
+    the two rows' own largest difference (the rule of the decode phase's
+    check).  With ``tol=None`` nothing is checked, only reported.  Returns
+    the number of requests with equal tokens."""
+    same = 0
+    for j, ((ta, ra), (tb, rb)) in enumerate(zip(paged, dense)):
+        check(len(ra) == len(ta) and len(rb) == len(tb),
+              f"request {j}: {len(ra)} rows for {len(ta)} tokens")
+        n = next((k for k, (a, b) in enumerate(zip(ta, tb)) if a != b), None)
+        worst = 0.0
+        for k in range(len(ta) if n is None else n + 1):
+            a, b = ra[k].float(), rb[k].float()
+            worst = max(worst, ((a - b).norm() / a.norm()).item())
+        gap = err = 0.0
+        if n is not None:
+            a, b = ra[n].float(), rb[n].float()
+            gap = (a[ta[n]] - a[tb[n]]).item()
+            err = (a - b).abs().max().item()
+            print(f"[moe] {label} request {j}: first different token at {n} "
+                  f"({ta[n]} vs {tb[n]}); paged logit gap {gap:.3e}, the "
+                  f"rows' max difference {err:.3e}; worst relative L2 up to "
+                  f"there {worst:.3e}")
+        same += n is None
+        if tol is None:
+            continue
+        check(worst <= tol, f"{label} request {j}: the planes' logits differ "
+              f"by relative L2 {worst:.3e} on the same context (tol {tol})")
+        check(gap <= err, f"{label} request {j}: the planes' greedy tokens "
+              f"differ at {n} by a logit gap of {gap:.3e} > the rows' max "
+              f"difference {err:.3e}")
+    print(f"[moe] {label}: {same}/{len(paged)} requests with the same greedy "
+          f"tokens on both planes" + ("" if tol is None else
+                                      f" (same-context logits within {tol})"))
+    return same
+
+
+def serve_plane(torch, rt, model, params, counters, tally, paged, profile):
+    """The serve trace on one engine plane, greedy, the launch counters set
+    to 0 just before and read just after.  Returns [(tokens, logits rows)]
+    per request and the expert-FFN kernel's launches."""
+    from repro_torch.serving import Request, SamplingParams
+
+    cfg, L = model.cfg, model.cfg.n_layers
+    plane = f"{cfg.dtype} {'paged' if paged else 'dense'} plane"
+    engine = rt.InferenceEngine(model, params, max_batch=8, max_seq=1024,
+                                page_size=64, prefill_chunk=8,
+                                paged_decode=paged)
+    rows_of = record_next_token_rows(engine)
+    tally.reset()
+    for c in counters.values():
+        c.launches = 0
+    reqs, step_ms, wall = run_trace(engine, cfg.vocab_size, Request,
+                                    SamplingParams(max_new_tokens=32))
+    m = engine.metrics
+    gen, processed, steps = (m.tokens_generated,
+                             m.prefill_tokens + m.tokens_generated,
+                             m.decode_steps)
+    if profile:
+        profile_window(torch, engine, cfg, Request,
+                       SamplingParams(max_new_tokens=16))
+    launches = {name: c.launches for name, c in counters.items()}
+    calls = dict(tally.calls)
+    check(all(r.finished and len(r.generated) == 32 for r in reqs),
+          f"moe, {plane}: not every request finished with 32 tokens")
+    check(all(r.decode_path == ("paged" if paged else "fused") for r in reqs),
+          f"moe, {plane}: a request took another decode path")
+    check(m.prefix_hits >= 4 and (m.shared_prefix_hits >= 4 or not paged),
+          f"moe, {plane}: resume / prefix sharing did not fire: {m}")
+    check(8 in tally.widths, f"moe, {plane}: no chunked-prefill step of 8 "
+          f"tokens ran (widths {sorted(tally.widths)})")
+    check(launches["moe_ffn"] == L * tally.total,
+          f"moe, {plane}: moe_ffn launched {launches['moe_ffn']} times in "
+          f"{tally.total} forwards {calls} (want {L} each)")
+    want_paged = L * calls["decode_chunk_paged"] if paged else 0
+    check(launches["paged_decode_chunk"] == want_paged,
+          f"moe, {plane}: paged_decode_chunk launched "
+          f"{launches['paged_decode_chunk']} times (want {want_paged})")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          f"moe, {plane}: a token is outside the vocabulary")
+    engine.pool.check_invariants()
+    print(f"[moe] {plane}: {len(reqs)} requests, {gen} tokens in {wall:.2f} "
+          f"s: {gen / wall:.1f} generated tok/s, {processed / wall:.1f} "
+          f"processed tok/s; {steps} steps, step ms p50 "
+          f"{np.percentile(step_ms, 50):.2f} p99 "
+          f"{np.percentile(step_ms, 99):.2f}; prefix_hits={m.prefix_hits} "
+          f"shared_prefix_hits={m.shared_prefix_hits}; forwards {calls}, "
+          f"chunk widths {sorted(tally.widths)}; launches {launches}")
+    out = [(list(r.generated), rows_of[r.request_id]) for r in reqs]
+    del engine
+    torch.cuda.empty_cache()
+    return out, launches["moe_ffn"]
+
+
+def phase_moe(torch, rt, counters):
+    """granite-moe-1b-a400m at full width: the serve trace on both engine
+    planes in bf16 (the model's type; timed), then again in float32
+    (kernels in f32, the weights upcast), where the planes are held to each
+    other; then first-step logits against the CPU.  In bf16 the planes'
+    tokens are only reported: the planes attend with different code (the
+    paged kernel, the dense plain math), bf16 rounds each, and top-k
+    routing turns such a rounding step into another expert.  Returns the
+    expert-FFN kernel's launches on the bf16 paged plane."""
+    cfg = rt.get_config("granite-moe-1b-a400m")
+    t0 = time.perf_counter()
+    model = rt.build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    print(f"[moe] {cfg.arch_id}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
+          f"{cfg.head_dim_}, {cfg.n_experts} experts top-{cfg.top_k} of width "
+          f"{cfg.d_expert}, vocab {cfg.vocab_size}; {cfg.param_count()} "
+          f"params ({cfg.param_count(active_only=True)} active) in "
+          f"{cfg.dtype}; set up in {time.perf_counter() - t0:.1f} s")
+    f32_model = rt.build_model(cfg.replace(dtype="float32"))
+    f32_params = to_f32(params, device="cuda")
+    runs, moe_launches = {}, 0
+    for mdl, prm in ((model, params), (f32_model, f32_params)):
+        tally = ForwardTally(mdl)
+        for paged in (True, False):
+            runs[mdl.cfg.dtype, paged], n = serve_plane(
+                torch, rt, mdl, prm, counters, tally, paged,
+                profile=paged and mdl is model)
+            if paged and mdl is model:
+                moe_launches = n
+    planes_agree(torch, "bfloat16", runs["bfloat16", True],
+                 runs["bfloat16", False])
+    planes_agree(torch, "float32", runs["float32", True],
+                 runs["float32", False], tol=F32_REL_L2_TOL)
+    del runs
+    moe_logits_check(torch, rt, model, params, f32_model, f32_params,
+                     counters)
+    return moe_launches
+
+
+def decode_step_logits(torch, mdl, prm, dev, prompt, counters):
+    """Logits [V] (float32, on the host) of one ``decode_step`` after a
+    prefill of ``prompt`` with decode headroom, and the launches of that
+    step alone (the counters set to 0 just before it, read just after)."""
+    toks = torch.from_numpy(prompt[None]).to(dev)
+    _, cache = mdl.prefill(prm, {"tokens": toks}, pad_cache_to=128)
+    for c in counters.values():
+        c.launches = 0
+    out, _ = mdl.decode_step(prm, toks[:, 0], cache)
+    return out[0].float().cpu(), {n: c.launches for n, c in counters.items()}
+
+
+def moe_logits_check(torch, rt, model, params, f32_model, f32_params,
+                     counters):
+    """Next-token logits of two prompts (23 and 61 tokens: the CPU runs
+    all 32 experts densely over them) through prefill, a paged step and a
+    ``decode_step`` over the dense cache (the ring kernel at head_dim 64):
+    the card in bf16 and in float32 against the CPU in float32."""
+    cfg = model.cfg
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (23, 61)]
+    runs = {}
+    for label, mdl, prm, dev in (("bf16", model, params, "cuda"),
+                                 ("f32", f32_model, f32_params, "cuda"),
+                                 ("cpu", f32_model, to_f32(params), "cpu")):
+        runs[label] = []
+        for p in prompts:
+            step, launches = decode_step_logits(torch, mdl, prm, dev, p,
+                                                counters)
+            runs[label].append(first_step_logits(torch, rt, mdl, prm, dev, p)
+                               + (step,))
+            if dev == "cuda":
+                check(launches["decode_ring"] == cfg.n_layers
+                      and launches["moe_ffn"] == cfg.n_layers,
+                      f"{label} decode_step launched {launches} (want "
+                      f"{cfg.n_layers} decode_ring and moe_ffn)")
+        del prm
+    print(f"[moe] one decode_step launches {cfg.n_layers} decode_ring and "
+          f"{cfg.n_layers} moe_ffn kernels (bf16 and float32)")
+    for i, prompt in enumerate(prompts):
+        for j, name in enumerate(("prefill", "paged step", "decode_step")):
+            ref = runs["cpu"][i][j]
+            tag = f"{cfg.arch_id} prompt of {len(prompt)}: {name}"
+            same, gap, err = compare_logits(torch, tag, runs["bf16"][i][j],
+                                            ref)
+            check(same or gap <= err,
+                  f"{tag}: card bf16 and CPU argmax differ by a CPU logit "
+                  f"gap of {gap:.3e} > the runs' max difference {err:.3e}")
+            same, _, _ = compare_logits(torch, tag, runs["f32"][i][j], ref,
+                                        tol=F32_REL_L2_TOL, card_type="f32")
+            check(same, f"{tag}: card f32 and CPU argmax differ")
+
+
 def main() -> int:
     import torch
 
@@ -730,6 +1059,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention import ref as flash_ref
+    from repro_torch.kernels.moe_ffn import ops as moe_ops
+    from repro_torch.kernels.moe_ffn import ref as moe_ref
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_attention import ref as paged_ref
 
@@ -737,15 +1068,17 @@ def main() -> int:
     card = nvidia_smi()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     cfg = rt.get_config("qwen3-0.6b")
+    moe_cfg = rt.get_config("granite-moe-1b-a400m")
     counters = {"paged_decode_chunk": paged_ops.paged_decode_chunk,
                 "flash_attention_bhsd": flash_ops.flash_attention_bhsd,
-                "decode_ring": paged_ops.decode_attention_kernel}
+                "decode_ring": paged_ops.decode_attention_kernel,
+                "moe_ffn": moe_ops.moe_ffn}
     decode_batch, decode_prompt = 8, 256
     try:
         phase_build(_build)
         rows = phase_kernels(torch, Timer(torch), paged_ops, paged_ref,
-                             flash_ops, flash_ref, cfg, decode_batch,
-                             decode_prompt)
+                             flash_ops, flash_ref, moe_ops, moe_ref, cfg,
+                             moe_cfg, decode_batch, decode_prompt)
         model, params, launches, paged_tokens = phase_serve(torch, rt, cfg,
                                                             counters)
         cpu_params = to_f32(params)
@@ -754,6 +1087,9 @@ def main() -> int:
             torch, rt, cfg, model, params, cpu_params, counters,
             decode_batch, decode_prompt)
         phase_dense(torch, rt, cfg, model, params, counters, paged_tokens)
+        del model, params, cpu_params
+        torch.cuda.empty_cache()
+        launches["moe_ffn"] = phase_moe(torch, rt, counters)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

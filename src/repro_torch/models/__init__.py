@@ -1,4 +1,4 @@
-"""PyTorch model zoo of the port (dense family so far)."""
+"""PyTorch model zoo of the port (the dense and MoE families so far)."""
 
 from .model import Model, build_model
 

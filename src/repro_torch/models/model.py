@@ -3,9 +3,10 @@
 The same façade as the JAX package's ``models/model.py`` for the serving
 entry points: the paged plane's ``prefill`` and ``decode_chunk_paged``, and
 the dense slot-cache plane's ``init_cache``, ``decode_step`` and
-``decode_chunk``.  Only the dense rms/swiglu family is ported, sliding
-windows included; the others raise, naming the ROADMAP item that ports
-them.
+``decode_chunk``.  The dense and MoE rms/swiglu families are ported,
+sliding windows included; the MoE layers run the reference's serving
+dispatch (``moe_serve_impl="dropless"``).  The other families raise,
+naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -43,10 +44,8 @@ class Model:
 
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = []
-    if cfg.family != "dense":
-        unsupported.append(f"family {cfg.family!r} (ROADMAP.md A10-A13)")
-    if cfg.n_experts:
-        unsupported.append("MoE layers (ROADMAP.md A10)")
+    if cfg.family not in ("dense", "moe"):
+        unsupported.append(f"family {cfg.family!r} (ROADMAP.md A12-A13)")
     if cfg.norm_type != "rms" or cfg.mlp_type != "swiglu":
         unsupported.append("layer norm / gelu MLPs (ROADMAP.md A11)")
     if unsupported:

@@ -1,4 +1,5 @@
-"""Dense decoder-only transformer (the qwen3 family), serving entry points.
+"""Decoder-only transformer (the dense qwen3 family and the MoE families),
+serving entry points.
 
 The port of the JAX package's ``models/transformer.py`` for serving:
 ``init_params``, the monolithic ``prefill``, the paged-native
@@ -20,6 +21,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
 from . import layers as L
+from . import moe as M
 
 
 def _normal(shape, std: float, cfg: ModelConfig, generator: torch.Generator,
@@ -59,15 +61,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     embed = {"tok": n((V, D), D ** -0.5)}
     if not cfg.tie_embeddings:
         embed["out"] = n((D, V), D ** -0.5)
+    if cfg.n_experts > 0:
+        mlp = M.init_moe_layer(cfg, generator, dev, NL)
+    else:
+        mlp = {"w_up": n((NL, D, F), s_in), "w_down": n((NL, F, D), s_in),
+               "w_gate": n((NL, D, F), s_in)}
     return {
         "embed": embed,
         "layers": {
             "attn_norm": {"w": ones(NL, D)},
             "attn": attn,
             "mlp_norm": {"w": ones(NL, D)},
-            "mlp": {"w_up": n((NL, D, F), s_in),
-                    "w_down": n((NL, F, D), s_in),
-                    "w_gate": n((NL, D, F), s_in)},
+            "mlp": mlp,
         },
         "final_norm": {"w": ones(D)},
     }
@@ -79,9 +84,17 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+def _ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+    """FFN sub-block: the dropless MoE (its aux loss and expert counts are
+    training telemetry, which serving drops) or the dense MLP."""
+    if cfg.n_experts > 0:
+        return M.moe_block(x, lp["mlp"], cfg, impl="dropless")[0]
+    return L.mlp_block(x, lp["mlp"], cfg)
+
+
 def _mlp_residual(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
     h = L.rms_norm(x, lp["mlp_norm"]["w"], cfg.norm_eps)
-    return x + L.mlp_block(h, lp["mlp"], cfg)
+    return x + _ffn(h, lp, cfg)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,

@@ -1,7 +1,7 @@
 """PyTorch inference engine: slot-based continuous batching.
 
-The port of the JAX package's ``serving/engine.py`` for the dense family,
-on both of its data planes:
+The port of the JAX package's ``serving/engine.py`` for the dense and MoE
+families, on both of its data planes:
 
   * the paged-native plane (the default): ``max_batch`` slots decode
     straight into the session pages of one ``PagedKVPool``; each step feeds
@@ -28,7 +28,7 @@ The device is ``torch.device("cuda")`` unless the caller names another;
 each step copies only the [B] greedy tokens to the host (the [B,V]
 next-token rows stay on the device unless a stochastic request samples
 from them).  Not ported yet (ROADMAP.md): speculative decoding
-(``draft_model``), the non-dense families and the per-token masked step
+(``draft_model``), the other families and the per-token masked step
 they need, request ``extras``, and the runtime-facing plumbing of the
 bridge (KV registry hooks, completion callbacks, token streaming).
 """
@@ -84,6 +84,12 @@ class EngineMetrics:
                 if self.decode_steps else 0.0)
 
 
+# the families the port serves; the reference's _CHUNKABLE_FAMILIES also
+# has ssm, hybrid and vlm.  Nothing else in the engine is MoE-specific: the
+# MoE layers live inside the model's entry points.
+_SERVED_FAMILIES = ("dense", "moe")
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
@@ -137,9 +143,9 @@ class InferenceEngine:
             raise _not_ported("speculative decoding (draft_model)", "A9")
         self.model = model
         self.cfg: ModelConfig = model.cfg
-        if self.cfg.family != "dense":
+        if self.cfg.family not in _SERVED_FAMILIES:
             raise _not_ported(f"serving the {self.cfg.family!r} family",
-                              "A10-A13")
+                              "A12-A13")
         self.device = resolve_device(device)
         self.params = params
         self.max_batch = max_batch

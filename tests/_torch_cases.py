@@ -3,8 +3,9 @@
 The cases cover the hazards of the kernels: permuted page tables, -1
 padding, ragged positions, partial tail pages, chunk lengths and sequence
 lengths that are no multiple of any tile, a windowed and a non-causal
-attention, and ring caches whose positions wrap past the cache length
-(twice), with windows below, at and above it.  Inputs come from numpy
+attention, ring caches whose positions wrap past the cache length
+(twice), with windows below, at and above it, and expert-FFN row counts and
+widths that are no multiple of the kernel's tiles.  Inputs come from numpy
 seeds.
 """
 
@@ -72,4 +73,24 @@ RING_CASES = [
     (5, 1, 96, 4, 1, 128, 48),
     # a window above the cache length and positions past 2C
     (6, 4, 40, 2, 2, 32, 64),
+]
+
+
+def moe_case(seed, E, C, D, F):
+    """Random capacity buffers xe [E,C,D] (scale 0.5) and expert weights
+    w_gate/w_up [E,D,F], w_down [E,F,D] (scale 0.1), the scales of the
+    reference's own sweep."""
+    rng = np.random.default_rng(seed)
+    xe = (rng.standard_normal((E, C, D)) * 0.5).astype(np.float32)
+    wg, wu = ((rng.standard_normal((E, D, F)) * 0.1).astype(np.float32)
+              for _ in range(2))
+    wd = (rng.standard_normal((E, F, D)) * 0.1).astype(np.float32)
+    return xe, wg, wu, wd
+
+
+MOE_CASES = [
+    # seed, E, C, D, F: the reference's moe_ffn sweep (tests/test_kernels.py)
+    (0, 2, 128, 64, 128),
+    (1, 3, 200, 32, 96),
+    (2, 1, 64, 128, 64),
 ]

@@ -29,11 +29,14 @@ from repro.kernels.paged_attention.paged_attention import \
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
     flash_attention_bhsd_ref  # noqa: E402
+from repro_torch.kernels.moe_ffn import ops as moe_ops  # noqa: E402
+from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import \
     paged_decode_chunk_ref  # noqa: E402
 
-from _torch_cases import FLASH_CASES, PAGED_CASES, paged_case  # noqa: E402
+from _torch_cases import (FLASH_CASES, PAGED_CASES, moe_case,  # noqa: E402
+                          paged_case)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 REPO = Path(__file__).resolve().parents[1]
@@ -94,7 +97,8 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     q, kp, vp, pt, pos = paged_case(5, 2, 2, 2, 2, 32, 8, 16, 6)
     t = torch.from_numpy
     before = (paged_ops.paged_decode_chunk.launches,
-              flash_ops.flash_attention_bhsd.launches)
+              flash_ops.flash_attention_bhsd.launches,
+              moe_ops.moe_ffn.launches)
     got = paged_ops.paged_decode_chunk(t(q), t(kp), t(vp), t(pt), t(pos),
                                        scale=0.2, n_rep=2)
     want = paged_decode_chunk_ref(t(q), t(kp), t(vp), t(pt), t(pos),
@@ -103,8 +107,13 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     x = torch.randn(2, 9, 32)
     assert torch.equal(flash_ops.flash_attention_bhsd(x, x, x),
                        flash_attention_bhsd_ref(x, x, x))
+    xe, wg, wu, wd = (t(a) for a in moe_case(4, 3, 5, 16, 24))
+    xe = xe[:1].expand(3, 5, 16)
+    assert torch.equal(moe_ops.moe_ffn(xe, wg, wu, wd),
+                       moe_ffn_ref(xe, wg, wu, wd))
     assert (paged_ops.paged_decode_chunk.launches,
-            flash_ops.flash_attention_bhsd.launches) == before
+            flash_ops.flash_attention_bhsd.launches,
+            moe_ops.moe_ffn.launches) == before
 
 
 # ------------------------------------------------------------ package rules
@@ -145,3 +154,11 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
                            page_size=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         rt.params_from_numpy({"w": np.zeros(2, np.float32)})
+    # the MoE family, whose every layer runs moe_ffn, refuses the same way
+    moe = rt.build_model(rt.get_smoke_config("granite-moe-1b-a400m"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        moe.init(torch.Generator())
+    moe_params = moe.init(torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rt.InferenceEngine(moe, moe_params, max_batch=1, max_seq=16,
+                           page_size=8)

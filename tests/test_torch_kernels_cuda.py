@@ -8,16 +8,20 @@ one; none needs JAX.  On a machine with a card:
 Tolerances: f32 1e-5 (summation order only); bf16 1e-2 absolute and
 relative (both sides round the output to bf16 once; the flash kernel also
 rounds its probabilities to bf16 before P.V, as its plain version does).
+The expert-FFN kernel's rows must also be bitwise independent of how many
+rows are launched with them.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (FLASH_CASES, PAGED_CASES, RING_CASES, paged_case,
-                          ring_case)
+from _torch_cases import (FLASH_CASES, MOE_CASES, PAGED_CASES, RING_CASES,
+                          moe_case, paged_case, ring_case)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_bhsd_ref
+from repro_torch.kernels.moe_ffn import ops as moe_ops
+from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ref import (decode_ring_ref,
                                                      paged_decode_chunk_ref)
@@ -31,6 +35,11 @@ MAIN_FLASH = (9, 16, 500, 500, 128, True, None)
 # decode_step's ring at full width: B=8, a 1024-slot cache, 8 kv heads of
 # 2 queries, D=128; no window, and a 256-slot ring with a 256 window
 MAIN_RING = [(9, 8, 1024, 8, 2, 128, None), (10, 8, 256, 8, 2, 128, 256)]
+# the dropless MoE of full-width granite-moe-1b-a400m (E=32, D=1024, F=512)
+# over an engine step's 64 rows and over 37 (a row-tile tail); and a width
+# whose D (40) and F (24) are no multiple of the kernel's sub-tiles
+MAIN_MOE = [(9, 32, 64, 1024, 512), (10, 32, 37, 1024, 512),
+            (11, 3, 5, 40, 24)]
 
 
 @pytest.fixture
@@ -94,6 +103,45 @@ def test_ring_kernel_matches_plain(cuda_device, dtype, case):
     torch.testing.assert_close(got.float(), want.float(), **CARD_TOL[dtype])
 
 
+def _moe_inputs(case, device, dtype, expanded):
+    seed, E, C, D, F = case
+    xe, wg, wu, wd = (torch.from_numpy(a).to(device, dtype)
+                      for a in moe_case(seed, E, C, D, F))
+    if expanded:          # one [C,D] block seen by every expert, no copy
+        xe = xe[:1].expand(E, C, D)
+    return xe, wg, wu, wd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("expanded", [False, True])
+@pytest.mark.parametrize("case", MOE_CASES + MAIN_MOE)
+def test_moe_ffn_kernel_matches_plain(cuda_device, dtype, expanded, case):
+    args = _moe_inputs(case, cuda_device, dtype, expanded)
+    n = moe_ops.moe_ffn.launches
+    got = moe_ops.moe_ffn(*args)
+    torch.cuda.synchronize()
+    assert moe_ops.moe_ffn.launches == n + 1
+    torch.testing.assert_close(got.float(), moe_ffn_ref(*args).float(),
+                               **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_rows_do_not_depend_on_the_batch(cuda_device, dtype):
+    """Every row of a 64-row launch at granite's full width equals,
+    bitwise, the same row launched alone and in blocks of 8."""
+    xe, wg, wu, wd = _moe_inputs(MAIN_MOE[0], cuda_device, dtype, False)
+    E, C, D = xe.shape
+    x = xe[0]
+    full = moe_ops.moe_ffn(x.expand(E, C, D), wg, wu, wd)
+    for width in (1, 8):
+        for c0 in range(0, C, width):
+            part = moe_ops.moe_ffn(x[c0:c0 + width].expand(E, width, D),
+                                   wg, wu, wd)
+            assert torch.equal(part, full[:, c0:c0 + width]), (width, c0)
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros(2, 1, 4, 32, device=cuda_device, dtype=torch.float16)
@@ -129,3 +177,22 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
             torch.zeros(1, 8, 1, 128, device=cuda_device),
             torch.zeros(1, 8, 1, 128, device=cuda_device), pos[:1],
             window=None, scale=1.0, n_rep=256)
+    xe = torch.zeros(2, 3, 16, device=cuda_device, dtype=torch.float16)
+    w = torch.zeros(2, 16, 8, device=cuda_device, dtype=torch.float16)
+    wd = torch.zeros(2, 8, 16, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        moe_ops.moe_ffn(xe, w, w, wd)
+    xe, w, wd = xe.bfloat16(), w.bfloat16(), wd.bfloat16()
+    with pytest.raises(ValueError, match="expert stride"):
+        moe_ops.moe_ffn(xe.transpose(0, 1).contiguous().transpose(0, 1),
+                        w, w, wd)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_ops.moe_ffn(xe, w, w, wd.transpose(1, 2).contiguous()
+                        .transpose(1, 2))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        moe_ops.moe_ffn(xe[..., :12].contiguous(), w[:, :12].contiguous(),
+                        w[:, :12].contiguous(), wd[..., :12].contiguous())
+    big = torch.zeros(1, 8, 4096, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        moe_ops.moe_ffn(torch.zeros(1, 2, 8, device=cuda_device), big, big,
+                        torch.zeros(1, 4096, 8, device=cuda_device))
