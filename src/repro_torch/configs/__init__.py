@@ -14,12 +14,13 @@ from typing import Dict, List
 from .base import ModelConfig
 
 ARCH_IDS: List[str] = ["qwen3_0_6b", "qwen3_moe_235b_a22b",
-                       "granite_moe_1b_a400m"]
+                       "granite_moe_1b_a400m", "mamba2_130m"]
 
 _ALIASES: Dict[str, str] = {
     "qwen3-0.6b": "qwen3_0_6b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "mamba2-130m": "mamba2_130m",
 }
 
 

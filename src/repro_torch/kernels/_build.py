@@ -28,6 +28,7 @@ SOURCES: Dict[str, str] = {
     "flash_attention": "flash_attention.cu",
     "decode_ring": "decode_ring.cu",
     "moe_ffn": "moe_ffn.cu",
+    "ssd": "ssd.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -131,6 +131,18 @@ def attention_qkv(x: torch.Tensor, p: dict, cfg: ModelConfig,
 
 
 # ------------------------------------------------------------ decode utils
+def mask_cache_rows(mask: torch.Tensor, new: dict, old: dict) -> dict:
+    """Per cache leaf of ``new``, its rows where ``mask`` [B] is set and
+    ``old``'s elsewhere (the batch axis is 0 for pos, 1 for the rest)."""
+    out = {}
+    for key, v in new.items():
+        shape = [1] * v.dim()
+        ax = 0 if key == "pos" else 1
+        shape[ax] = v.shape[ax]
+        out[key] = torch.where(mask.reshape(shape), v, old[key])
+    return out
+
+
 def pad_cache_seq(ks: torch.Tensor, vs: torch.Tensor, C: int,
                   window: Optional[int], pad_cache_to: Optional[int]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:

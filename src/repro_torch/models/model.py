@@ -5,20 +5,22 @@ entry points: the paged plane's ``prefill`` and ``decode_chunk_paged``, and
 the dense slot-cache plane's ``init_cache``, ``decode_step`` and
 ``decode_chunk``.  The dense and MoE rms/swiglu families are ported,
 sliding windows included; the MoE layers run the reference's serving
-dispatch (``moe_serve_impl="dropless"``).  The other families raise,
-naming the ROADMAP item that ports them.
+dispatch (``moe_serve_impl="dropless"``).  The ssm family (mamba2) has no
+pages: its ``decode_chunk_paged`` is None, and the engine keeps its O(1)
+state in a ``StateCachePool``.  The other families raise, naming the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig
-from . import transformer
+from . import ssm, transformer
 
 
 @dataclass
@@ -36,16 +38,18 @@ class Model:
     decode_chunk: Callable[..., Tuple[torch.Tensor, dict]]
     # decode_chunk_paged(params, tokens, valid_len, slim_cache, k_pages,
     # v_pages, page_table, *, max_seq) -> (logits, slim_cache, k_pages,
-    # v_pages); the pages are updated in place
-    decode_chunk_paged: Callable[..., Any]
-    # init_cache(batch, max_seq, device=None) -> {"k", "v", "pos"}
+    # v_pages); the pages are updated in place.  None for the ssm family.
+    decode_chunk_paged: Optional[Callable[..., Any]]
+    # init_cache(batch, max_seq, device=None) -> {"k", "v", "pos"}, or
+    # {"conv", "ssm", "pos"} for the ssm family
     init_cache: Callable[..., dict]
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = []
-    if cfg.family not in ("dense", "moe"):
-        unsupported.append(f"family {cfg.family!r} (ROADMAP.md A12-A13)")
+    if cfg.family not in ("dense", "moe", "ssm"):
+        item = "A13, with kernel B6" if cfg.family == "hybrid" else "A12"
+        unsupported.append(f"family {cfg.family!r} (ROADMAP.md {item})")
     if cfg.norm_type != "rms" or cfg.mlp_type != "swiglu":
         unsupported.append("layer norm / gelu MLPs (ROADMAP.md A11)")
     if unsupported:
@@ -55,6 +59,20 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 def build_model(cfg: ModelConfig) -> Model:
     _check_supported(cfg)
+    if cfg.family == "ssm":
+        return Model(
+            cfg=cfg,
+            init=lambda generator, device=None: ssm.init_params(
+                cfg, generator, device),
+            prefill=lambda params, batch: ssm.prefill(params, cfg,
+                                                      batch["tokens"]),
+            decode_step=lambda params, tok, cache: ssm.decode_step(
+                params, cfg, tok, cache),
+            decode_chunk=lambda params, toks, n, cache: ssm.decode_chunk(
+                params, cfg, toks, n, cache),
+            decode_chunk_paged=None,
+            init_cache=functools.partial(ssm.init_cache, cfg),
+        )
     return Model(
         cfg=cfg,
         init=lambda generator, device=None: transformer.init_params(

@@ -1,7 +1,7 @@
 """PyTorch inference engine: slot-based continuous batching.
 
-The port of the JAX package's ``serving/engine.py`` for the dense and MoE
-families, on both of its data planes:
+The port of the JAX package's ``serving/engine.py`` for the dense, MoE and
+ssm families, on its three data planes:
 
   * the paged-native plane (the default): ``max_batch`` slots decode
     straight into the session pages of one ``PagedKVPool``; each step feeds
@@ -14,6 +14,12 @@ families, on both of its data planes:
     a resumed session is gathered from the pool into its slot row
     (``gather_contiguous``) and a finished one written back
     (``write_session``);
+  * the state-cache plane (the ssm family, whose decode state is O(1)):
+    the slots share the model's conv and SSM state rows, stepped by
+    ``model.decode_chunk`` (or, for a model without one, per-token masked
+    ``decode_step``s); a finished session's row is stored in a
+    ``StateCachePool``, and a resumed session is prefilled cold, as on the
+    reference;
   * admission pulls from a bounded, heap-ordered priority wait queue; a new
     request resumes its session's pages (prefix reuse), adopts another
     session's indexed prefix pages (cross-session prefix sharing), or
@@ -28,9 +34,9 @@ The device is ``torch.device("cuda")`` unless the caller names another;
 each step copies only the [B] greedy tokens to the host (the [B,V]
 next-token rows stay on the device unless a stochastic request samples
 from them).  Not ported yet (ROADMAP.md): speculative decoding
-(``draft_model``), the other families and the per-token masked step
-they need, request ``extras``, and the runtime-facing plumbing of the
-bridge (KV registry hooks, completion callbacks, token streaming).
+(``draft_model``), the hybrid, vlm and audio families, request
+``extras``, and the runtime-facing plumbing of the bridge (KV registry
+hooks, completion callbacks, token streaming).
 """
 
 from __future__ import annotations
@@ -47,10 +53,11 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
+from ..models.layers import mask_cache_rows
 from ..models.model import Model
 from .batching import (EngineOverloaded, Request, RequestExpired, WaitQueue,
                        bucket_len)
-from .kv_cache import PagedKVPool
+from .kv_cache import PagedKVPool, StateCachePool
 from .sampler import SamplingParams, sample
 
 
@@ -85,9 +92,9 @@ class EngineMetrics:
 
 
 # the families the port serves; the reference's _CHUNKABLE_FAMILIES also
-# has ssm, hybrid and vlm.  Nothing else in the engine is MoE-specific: the
-# MoE layers live inside the model's entry points.
-_SERVED_FAMILIES = ("dense", "moe")
+# has hybrid and vlm.  Nothing else in the engine is MoE-specific: the MoE
+# layers live inside the model's entry points.
+_SERVED_FAMILIES = ("dense", "moe", "ssm")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -144,8 +151,9 @@ class InferenceEngine:
         self.model = model
         self.cfg: ModelConfig = model.cfg
         if self.cfg.family not in _SERVED_FAMILIES:
+            item = "A13" if self.cfg.family == "hybrid" else "A12"
             raise _not_ported(f"serving the {self.cfg.family!r} family",
-                              "A12-A13")
+                              item)
         self.device = resolve_device(device)
         self.params = params
         self.max_batch = max_batch
@@ -170,14 +178,24 @@ class InferenceEngine:
         # request_id -> private generator (stochastic sampling only)
         self._req_gen: Dict[str, torch.Generator] = {}
 
-        n_pages = pool_pages or (max_batch * (max_seq // page_size + 1) * 2)
-        self.pool = PagedKVPool(self.cfg, n_pages=n_pages,
-                                page_size=page_size, device=self.device)
+        # session cache pool: paged K/V for the attention families, O(1)
+        # state rows for ssm
+        self.pool: Any
+        self._state_pool = self.cfg.family == "ssm"
+        if self._state_pool:
+            self.pool = StateCachePool(self.cfg)
+        else:
+            n_pages = pool_pages or (max_batch * (max_seq // page_size + 1)
+                                     * 2)
+            self.pool = PagedKVPool(self.cfg, n_pages=n_pages,
+                                    page_size=page_size, device=self.device)
         W = self.cfg.sliding_window
         # cross-session prefix sharing: admission and warm_session consult
-        # the pool's prefix index.  Valid only when a cache position maps
-        # 1:1 to a token prefix position: no sliding-window ring wrap.
-        self._prefix_share_ok = not W or self.max_seq <= W
+        # the pool's prefix index.  Valid only for a paged pool where a
+        # cache position maps 1:1 to a token prefix position: no
+        # sliding-window ring wrap.
+        self._prefix_share_ok = (not self._state_pool
+                                 and (not W or self.max_seq <= W))
         # paged-native decode: the KV pool IS the decode cache.  Windowed
         # configs qualify only when the ring never wraps (slot == position,
         # so the linear page layout matches the ring layout); the others,
@@ -186,15 +204,16 @@ class InferenceEngine:
         self._paged = self.paged_decode and self._prefix_share_ok
         # dense per-slot cache length
         self._slot_C = min(self.max_seq, W) if W else self.max_seq
-        # dense plane: the per-slot k/v [L,B,C,Hkv,Dh] (the slots' positions
-        # live on the host in _pos on both planes)
+        # dense plane: the per-slot k/v [L,B,C,Hkv,Dh]; state-cache plane:
+        # conv [L,B,K-1,C] and ssm [L,B,H,P,N] (the slots' positions live on
+        # the host in _pos on every plane)
         self.cache: Dict[str, torch.Tensor] = {}
         self._blank_row_cache: Optional[Dict[str, torch.Tensor]] = None
         if self._paged:
             self._max_pages = self.pool.pages_needed(self.max_seq)
         else:
             full = model.init_cache(max_batch, max_seq, device=self.device)
-            self.cache = {"k": full["k"], "v": full["v"]}
+            self.cache = {k: v for k, v in full.items() if k != "pos"}
         # slot -> pool session key the slot decodes into (paged plane only;
         # anonymous requests get a synthetic key released at vacate)
         self._slot_sid: Dict[int, str] = {}
@@ -268,7 +287,13 @@ class InferenceEngine:
         (``resume_overflows`` counts an explicit refusal).  On the paged
         plane a resume moves no bytes, the slot adopts the session's pages
         and ``row`` is None; on the dense plane ``row`` is the session's
-        cache gathered into a batch-1 slot row."""
+        cache gathered into a batch-1 slot row.  A ``StateCachePool``
+        session is never resumed: the reference loads its state row and
+        then prefills cold all the same (its state plus the prompt fed
+        incrementally would be the same prefill), so the port skips the
+        load."""
+        if self._state_pool:
+            return None
         if self._paged:
             sp = self.pool.session(req.session_id)
             if sp is None or not sp.pages or sp.tokens <= 0:
@@ -291,7 +316,8 @@ class InferenceEngine:
 
     def _blank_row(self) -> Dict[str, torch.Tensor]:
         """Zeroed single-slot cache row for chunked-prefill admission on
-        the dense plane, so a recycled slot never starts from its previous
+        the dense and state-cache planes (recurrent state accumulates
+        unconditionally), so a recycled slot never starts from its previous
         occupant's row."""
         if self._blank_row_cache is None:
             self._blank_row_cache = {
@@ -357,9 +383,12 @@ class InferenceEngine:
                 # would corrupt them.  Defer until that slot finishes.
                 self.queue.push(req)
                 return
+            W = self.cfg.sliding_window
             if self._paged:
                 req.decode_path = "paged"
-            elif not self._prefix_share_ok:
+            elif self.model.decode_chunk is None:
+                req.decode_path = "masked"
+            elif W and self.max_seq > W:
                 # windowed config whose ring wraps (max_seq > window): the
                 # paged plane cannot serve it (linear page layout != ring
                 # layout), so it stays on the dense ring plane
@@ -505,6 +534,12 @@ class InferenceEngine:
         W = self.cfg.sliding_window
         bucket = min(bucket_len(len(toks)), self.max_seq)
         with self._lock:
+            if self._state_pool:
+                # the left-padded bucket's state row: its last position is
+                # the transcript's last token
+                _logits, row_cache = self._prefill(req)
+                self.pool.store(session_id, row_cache, bucket)
+                return bucket
             if self._prefix_share_ok:
                 # resident-prefix fast path: pages covering a prefix of the
                 # transcript (this session's own, or another session's via
@@ -631,8 +666,10 @@ class InferenceEngine:
             budget = max(1, self.prefill_chunk) if prefilling else 1
             if self._paged:
                 sampled = self._step_paged(active, budget)
-            else:
+            elif self.model.decode_chunk is not None:
                 sampled = self._step_fused(active, budget)
+            else:
+                sampled = self._step_masked(active, budget)
             now = time.monotonic()
             for i in active:
                 req = self.slots[i]
@@ -760,8 +797,8 @@ class InferenceEngine:
         return self._sample_ready(active, valid, rows, greedy)
 
     def _step_fused(self, active: List[int], budget: int) -> set:
-        """One fused chunk forward over the dense slot cache
-        (``model.decode_chunk``), the dense plane's step."""
+        """One fused chunk forward over the slot cache
+        (``model.decode_chunk``), the dense and state-cache planes' step."""
         toks, valid = self._plan_chunk(active, budget)
         if self._prefix_share_ok:
             for i in active:
@@ -771,8 +808,11 @@ class InferenceEngine:
         dev = self.device
         valid_t = torch.from_numpy(valid).to(dev)
         cache = dict(self.cache, pos=torch.from_numpy(self._pos).to(dev))
-        logits, _cache = self.model.decode_chunk(
+        logits, new = self.model.decode_chunk(
             self.params, torch.from_numpy(toks).to(dev), valid_t, cache)
+        # the transformer updates its k/v in place, the recurrence returns
+        # new state rows
+        self.cache = {k: new[k] for k in self.cache}
         self._pos += valid
         self.metrics.decode_steps += 1
         # next-token distribution sits at each slot's last valid row
@@ -780,6 +820,64 @@ class InferenceEngine:
         rows = logits[torch.arange(logits.shape[0], device=dev), last]
         return self._sample_ready(active, valid, rows,
                                   torch.argmax(rows, dim=-1))
+
+    def _masked_decode(self, tokens: np.ndarray,
+                       mask: np.ndarray) -> torch.Tensor:
+        """One batched ``decode_step`` where only masked-in slots advance:
+        a masked-out slot's cache rows are kept, so prompt tokens and
+        single decode tokens share one step.  Returns the logits [B,V]."""
+        dev = self.device
+        cache = dict(self.cache, pos=torch.from_numpy(self._pos).to(dev))
+        logits, new = self.model.decode_step(
+            self.params, torch.from_numpy(tokens).to(dev), cache)
+        kept = mask_cache_rows(torch.from_numpy(mask).to(dev), new, cache)
+        self.cache = {k: kept[k] for k in self.cache}
+        self._pos += mask
+        return logits
+
+    def _step_masked(self, active: List[int], budget: int) -> set:
+        """Per-token step for models without a fused chunk step: up to
+        ``budget`` masked sub-steps over ``decode_step``, where only
+        prompt-consuming slots advance after the first."""
+        pending = self._pending_prompt
+        sampled: set = set()
+        for j in range(budget):
+            toks = np.zeros((self.max_batch,), np.int64)
+            mask = np.zeros((self.max_batch,), bool)
+            for i in active:
+                q = pending.get(i)
+                if q:
+                    toks[i] = q.pop(0)
+                    mask[i] = True
+                    if not q:
+                        pending.pop(i, None)
+                elif j == 0 and i not in sampled:
+                    req = self.slots[i]
+                    toks[i] = req.generated[-1] if req.generated else 0
+                    mask[i] = True
+            if not mask.any():
+                break
+            if self._prefix_share_ok:
+                for i in active:
+                    ids = self._slot_tokens.get(i)
+                    if ids is not None and mask[i]:
+                        ids.append(int(toks[i]))
+            logits = self._masked_decode(toks, mask)
+            self.metrics.decode_steps += 1
+            ready = [i for i in active
+                     if mask[i] and i not in pending and i not in sampled]
+            if not ready:
+                continue
+            greedy = torch.argmax(logits, dim=-1).cpu().numpy()
+            for i in ready:
+                req = self.slots[i]
+                tok = self._sample_slot(req, logits, i, greedy)
+                req.generated.append(tok)
+                if req.first_token_at < 0:
+                    req.first_token_at = time.monotonic()
+                self.metrics.tokens_generated += 1
+                sampled.add(i)
+        return sampled
 
     def _vacate_slot(self, slot: int) -> None:
         """Free a batch slot and every per-slot residue (pending prompt,
@@ -813,7 +911,15 @@ class InferenceEngine:
                 self.pool.release(req.session_id)
         else:
             self.metrics.completed += 1
-            if not self._paged and req.session_id:
+            if self._state_pool and req.session_id:
+                # a copy of the slot's state row (the slot is recycled)
+                tokens = int(self._pos[slot])
+                row = {k: v.clone() for k, v in
+                       get_slot(self.cache, slot).items()}
+                row["pos"] = torch.tensor([tokens], dtype=torch.int32,
+                                          device=self.device)
+                self.pool.store(req.session_id, row, tokens)
+            elif not self._paged and req.session_id:
                 # dense plane: persist the slot's cache for prefix reuse on
                 # follow-ups (on the paged plane the pool pages ARE the
                 # session cache, already current through commit_append)
@@ -872,7 +978,8 @@ class InferenceEngine:
                 "prefix_hits": m.prefix_hits,
                 "shared_prefix_hits": m.shared_prefix_hits,
                 "shared_prefix_tokens": m.shared_prefix_tokens,
-                "prefix_sharing": dict(self.pool.stats),
+                "prefix_sharing": ({} if self._state_pool
+                                   else dict(self.pool.stats)),
                 "tokens_generated": m.tokens_generated,
                 "queue_limit": self.max_queue,
                 "queue_saturation": self.saturation(),

@@ -11,6 +11,9 @@ divergence, protect/unprotect of the sessions an engine slot decodes into,
 and the ``begin_append``/``commit_append`` reservation protocol of the
 paged-native decode step.
 
+``StateCachePool`` keeps the ssm family's sessions instead: one O(1)
+decode-state row each (conv window and recurrent state), no pages.
+
 PyTorch tensors are mutable, so every page write (copy-on-write, import,
 ``write_session``, the decode step's scatter) updates the pool tensors in
 place; this replaces the JAX package's functional ``.at[].set`` updates and
@@ -63,9 +66,8 @@ class PagedKVPool:
                  dtype: Optional[torch.dtype] = None,
                  device: DeviceLike = None) -> None:
         if cfg.family == "ssm":
-            raise NotImplementedError(
-                "SSM caches are O(1) state, kept by StateCachePool, which is "
-                "not ported yet (ROADMAP.md A9, A13)")
+            raise ValueError("SSM caches are O(1) state, kept by "
+                             "StateCachePool, not in pages")
         self.cfg = cfg
         self.page_size = page_size
         self.n_pages = n_pages
@@ -671,3 +673,49 @@ class PagedKVPool:
                 for block, page in children.items():
                     assert self._page_key.get(page) == (parent, block), \
                         f"index entry ({parent},{block})->{page} unmapped"
+
+
+class StateCachePool:
+    """O(1)-state cache pool for SSM sessions: each session's conv window
+    and recurrent state (one batch-1 cache row) and the tokens it stands
+    for.  Migration costs the same whatever the session's length.
+
+    The pool keeps what it is given: the engine stores copies, never views
+    of its live slot cache.  ``import_session`` copies the payload's
+    tensors (the reference's arrays are immutable, torch tensors are not),
+    so an exporting and an importing pool never share a tensor."""
+
+    def __init__(self, cfg: ModelConfig) -> None:
+        self.cfg = cfg
+        self._states: Dict[str, Tuple[dict, int]] = {}
+        self._lock = threading.RLock()
+
+    def store(self, session_id: str, state: dict, tokens: int) -> None:
+        with self._lock:
+            self._states[session_id] = (state, tokens)
+
+    def load(self, session_id: str) -> Optional[Tuple[dict, int]]:
+        with self._lock:
+            return self._states.get(session_id)
+
+    def release(self, session_id: str) -> None:
+        with self._lock:
+            self._states.pop(session_id, None)
+
+    def on_hint(self, session_id: str, hint: str) -> None:
+        if hint in ("drop", "migrate_out"):
+            self.release(session_id)
+
+    def export_session(self, session_id: str
+                       ) -> Optional[Tuple[dict, int]]:
+        with self._lock:
+            return self._states.get(session_id)
+
+    def import_session(self, session_id: str, payload,
+                       now: float = 0.0) -> bool:
+        state, tokens = payload
+        copy = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                for k, v in state.items()}
+        with self._lock:
+            self._states[session_id] = (copy, tokens)
+            return True

@@ -4,9 +4,10 @@ The cases cover the hazards of the kernels: permuted page tables, -1
 padding, ragged positions, partial tail pages, chunk lengths and sequence
 lengths that are no multiple of any tile, a windowed and a non-causal
 attention, ring caches whose positions wrap past the cache length
-(twice), with windows below, at and above it, and expert-FFN row counts and
-widths that are no multiple of the kernel's tiles.  Inputs come from numpy
-seeds.
+(twice), with windows below, at and above it, expert-FFN row counts and
+widths that are no multiple of the kernel's tiles, and SSD sequences with a
+ragged last chunk, a chunk longer than the sequence and an initial state.
+Inputs come from numpy seeds.
 """
 
 import numpy as np
@@ -93,4 +94,32 @@ MOE_CASES = [
     (0, 2, 128, 64, 128),
     (1, 3, 200, 32, 96),
     (2, 1, 64, 128, 64),
+]
+
+
+def ssd_case(seed, B, S, H, P, N, init=False):
+    """The scales of the reference's SSD sweep: x [B,S,H,P] * 0.5, dt =
+    softplus(normal) [B,S,H], A = |normal| + 0.1 [H], Bm/Cm [B,S,N] * 0.3,
+    all float32; and, with ``init``, an initial state [B,H,P,N] * 0.5."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((B, S, H, P)) * 0.5).astype(np.float32)
+    dt = np.logaddexp(0.0, rng.standard_normal((B, S, H))).astype(np.float32)
+    A = (np.abs(rng.standard_normal(H)) + 0.1).astype(np.float32)
+    Bm, Cm = ((rng.standard_normal((B, S, N)) * 0.3).astype(np.float32)
+              for _ in range(2))
+    h0 = ((rng.standard_normal((B, H, P, N)) * 0.5).astype(np.float32)
+          if init else None)
+    return x, dt, A, Bm, Cm, h0
+
+
+SSD_CASES = [
+    # seed, B, S, H, P, N, chunk, init: the reference's ssd sweep
+    # (tests/test_kernels.py), a ragged last chunk (193 = 3 x 64 + 1), a
+    # chunk longer than the sequence, and initial states
+    (0, 1, 128, 2, 32, 64, 64, False),
+    (1, 2, 256, 3, 64, 128, 128, False),
+    (2, 1, 192, 1, 16, 32, 64, False),
+    (3, 1, 193, 2, 32, 32, 64, False),
+    (4, 2, 40, 2, 16, 16, 64, True),
+    (5, 2, 100, 3, 32, 64, 32, True),
 ]

@@ -9,7 +9,11 @@ Tolerances: f32 1e-5 (summation order only); bf16 1e-2 absolute and
 relative (both sides round the output to bf16 once; the flash kernel also
 rounds its probabilities to bf16 before P.V, as its plain version does).
 The expert-FFN kernel's rows must also be bitwise independent of how many
-rows are launched with them.
+rows are launched with them.  The SSD chunk scan is held relative to the
+largest reference value: y within 1e-2 in bf16 (the plain version also
+rounds the scores, the decayed score matrix and dt to bf16, the kernel
+only y) and 1e-3 in float32, against the plain version and against the
+token-by-token recurrence; its float32 final state within 1e-3.
 """
 
 import numpy as np
@@ -17,7 +21,8 @@ import pytest
 import torch
 
 from _torch_cases import (FLASH_CASES, MOE_CASES, PAGED_CASES, RING_CASES,
-                          moe_case, paged_case, ring_case)
+                          SSD_CASES, moe_case, paged_case, ring_case,
+                          ssd_case)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_bhsd_ref
 from repro_torch.kernels.moe_ffn import ops as moe_ops
@@ -25,6 +30,8 @@ from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ref import (decode_ring_ref,
                                                      paged_decode_chunk_ref)
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_sequential
 
 CARD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
             torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
@@ -40,6 +47,13 @@ MAIN_RING = [(9, 8, 1024, 8, 2, 128, None), (10, 8, 256, 8, 2, 128, 256)]
 # whose D (40) and F (24) are no multiple of the kernel's sub-tiles
 MAIN_MOE = [(9, 32, 64, 1024, 512), (10, 32, 37, 1024, 512),
             (11, 3, 5, 40, 24)]
+# mamba2-130m's prefill at full width (24 heads, P=64, N=128, chunk 256):
+# the bucket of a 257..512-token admission, a ragged 300 with initial
+# states at B=2; and chunks of 16 (the smoke config's) over a ragged 100
+MAIN_SSD = [(9, 1, 512, 24, 64, 128, 256, False),
+            (10, 2, 300, 24, 64, 128, 256, True),
+            (11, 2, 100, 4, 32, 32, 16, True)]
+SSD_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -142,6 +156,56 @@ def test_moe_ffn_rows_do_not_depend_on_the_batch(cuda_device, dtype):
             assert torch.equal(part, full[:, c0:c0 + width]), (width, c0)
 
 
+def _ssd_inputs(case, device, dtype):
+    seed, B, S, H, P, N, chunk, init = case
+    x, dt, A, Bm, Cm, h0 = ssd_case(seed, B, S, H, P, N, init)
+    return ([torch.from_numpy(x).to(device, dtype),
+             torch.from_numpy(dt).to(device), torch.from_numpy(A).to(device),
+             torch.from_numpy(Bm).to(device, dtype),
+             torch.from_numpy(Cm).to(device, dtype)],
+            None if h0 is None else torch.from_numpy(h0).to(device), chunk)
+
+
+def _rel(got, want):
+    """The largest difference over the largest reference value."""
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES + MAIN_SSD)
+def test_ssd_kernel_matches_plain(cuda_device, dtype, case):
+    args, h0, chunk = _ssd_inputs(case, cuda_device, dtype)
+    n = ssd_ops.ssd_chunk_scan.launches
+    y, final = ssd_ops.ssd_chunk_scan(*args, chunk=chunk, init_state=h0)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_chunk_scan.launches == n + 1
+    want_y, want_final = ssd_chunked_ref(*args, chunk, h0)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(final).all())
+    assert _rel(y, want_y) <= SSD_REL_TOL[dtype]
+    assert _rel(final, want_final) <= 1e-3
+    if dtype == torch.float32:
+        seq_y, seq_final = ssd_sequential(*args, init_state=h0)
+        assert _rel(y, seq_y) <= 1e-3 and _rel(final, seq_final) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_reads_strided_rows_in_place(cuda_device):
+    """x, Bm and Cm as slices of one [B,S,H*P+2N] buffer, as the model
+    hands them over, give the contiguous copies' results bitwise."""
+    args, _, chunk = _ssd_inputs(MAIN_SSD[2], cuda_device, torch.bfloat16)
+    x, dt, A, Bm, Cm = args
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    buf = torch.cat([x.reshape(B, S, H * P), Bm, Cm], dim=-1)
+    xs, bs, cs = torch.split(buf, [H * P, N, N], dim=-1)
+    got = ssd_ops.ssd_chunk_scan(xs.reshape(B, S, H, P), dt, A, bs, cs,
+                                 chunk=chunk)
+    want = ssd_ops.ssd_chunk_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros(2, 1, 4, 32, device=cuda_device, dtype=torch.float16)
@@ -196,3 +260,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="shared memory"):
         moe_ops.moe_ffn(torch.zeros(1, 2, 8, device=cuda_device), big, big,
                         torch.zeros(1, 4096, 8, device=cuda_device))
+    args, _, _ = _ssd_inputs((0, 1, 8, 2, 16, 8, 8, False), cuda_device,
+                             torch.float32)
+    x, dt, A, Bm, Cm = args
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ssd_ops.ssd_chunk_scan(x[..., :8].contiguous(), dt, A, Bm, Cm,
+                               chunk=8)
+    wide = torch.zeros(1, 8, 160, device=cuda_device)
+    with pytest.raises(ValueError, match="ssm_state <= 128"):
+        ssd_ops.ssd_chunk_scan(x, dt, A, wide, wide, chunk=8)
+    args, _, _ = _ssd_inputs((0, 1, 300, 2, 16, 8, 300, False), cuda_device,
+                             torch.float32)
+    with pytest.raises(ValueError, match="chunks <= 256"):
+        ssd_ops.ssd_chunk_scan(*args, chunk=300)
