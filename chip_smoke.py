@@ -56,6 +56,25 @@ the run with a non-zero exit and no result line:
              float32 prefill (the scan) against ``decode_chunk`` over the
              same prompt (the recurrence); and the fused step against the
              per-token masked step in float32 (the same greedy tokens).
+9. hybrid  — recurrentgemma-9b at full width (random weights from a seed;
+             mamba2 freed first; 38 layers, 26 RG-LRU and 12 local
+             attention, head_dim 256, window 2048) on the state-cache
+             plane.  First its kernels at its widths: the RG-LRU scan
+             (bitwise against its plain version), the flash kernel at head
+             dim 256 and the ring kernel at one kv head of 16 queries, D =
+             256, over wrapped rings.  Then the serve trace in bf16 on a
+             ``prefill_chunk=0`` engine (26 scan and 12 flash launches per
+             admission) and a ``prefill_chunk=8`` one (neither), 12 ring
+             launches per single step on both, each with a profiled wave; a
+             ``warm_session`` and a session moved between the engines.
+             Then the five-layer cut (one group and the two tail layers)
+             against the CPU (card float32 within 1e-3, card bf16 within the
+             logits bound with a CPU bf16 witness, float32 prefill against
+             the recurrence, and 2100 tokens past the window over the
+             wrapped ring); the full depth past the window (two prompts of
+             2300 tokens, 32 decode_steps) in bf16 against float32 on the
+             card; and the fused, masked and monolithic engines' float32
+             tokens on the cut.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit (``nvidia-smi``), and ``{"ok": true, "device": {...}}``.
@@ -77,6 +96,8 @@ SRC = ROOT / "src"
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 flop/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+# float32 outside the tensor cores (the RG-LRU scan's multiply-adds)
+F32_FLOP_PER_S = 67e12
 # kernel vs plain version in bf16: both round the output to bf16 once (and
 # the flash kernel rounds its probabilities to bf16 before P.V, the plain
 # version its normalised ones), so they agree to about one bf16 ulp:
@@ -117,7 +138,12 @@ def nvidia_smi() -> str:
 # ------------------------------------------------------------------ timing
 class Timer:
     """Median device time of one call, with the 50 MB L2 flushed before
-    each launch (the serving path meets every layer's pages cold)."""
+    each launch (the serving path meets every layer's pages cold).  A spin
+    kernel of ~0.5 ms queued after the flush keeps the card busy while the
+    host runs the call's Python wrapper, so the timed span holds the
+    call's device work and not the host's launch overhead."""
+
+    SPIN_CYCLES = 1_000_000
 
     def __init__(self, torch):
         self.torch = torch
@@ -132,6 +158,7 @@ class Timer:
         ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
         for s, e in zip(starts, ends):
             self.flush_buf.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             s.record()
             fn()
             e.record()
@@ -140,9 +167,10 @@ class Timer:
                                 for s, e in zip(starts, ends)]))
 
 
-def bound_ms(n_bytes: float, flops: float):
+def bound_ms(n_bytes: float, flops: float,
+             flop_per_s: float = BF16_FLOP_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -761,6 +789,15 @@ def to_f32(tree, device="cpu"):
             else v.float().to(device) for k, v in tree.items()}
 
 
+def tree_leaves(tree):
+    """The tensors of a parameter tree."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from tree_leaves(v)
+        else:
+            yield v
+
+
 def to_cpu(tree):
     """A copy of a parameter tree on the host, in its own dtypes."""
     return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
@@ -927,8 +964,9 @@ def phase_dense(torch, rt, cfg, model, params, counters, paged_tokens):
 
 class ForwardTally:
     """Counts the calls of a model's forward entry points, which the
-    engine looks up on the model at every call, and the chunk widths its
-    steps feed."""
+    engine looks up on the model at every call, the chunk widths its steps
+    feed, and the single-token steps they add up to (a ``decode_step`` is
+    one, a ``decode_chunk`` of width T is T)."""
 
     NAMES = ("prefill", "decode_step", "decode_chunk", "decode_chunk_paged")
 
@@ -944,12 +982,16 @@ class ForwardTally:
             self.calls[name] += 1
             if name.startswith("decode_chunk"):
                 self.widths.add(int(args[1].shape[1]))
+                self.single_steps += int(args[1].shape[1])
+            elif name == "decode_step":
+                self.single_steps += 1
             return fn(*args, **kw)
         return counted
 
     def reset(self):
         self.calls = dict.fromkeys(self.NAMES, 0)
         self.widths = set()
+        self.single_steps = 0
 
     @property
     def total(self) -> int:
@@ -1425,6 +1467,600 @@ def phase_ssm(torch, rt, counters):
     return launches
 
 
+# ------------------------------------------------------------ phase 9
+# the cut of recurrentgemma-9b held against the CPU: its first (rec, rec,
+# attn) group and its two tail layers (rec_layers 0, 1, 24, 25 and
+# att_layers 0), five layers of the same pattern
+HYBRID_CUT = ([0, 1, 24, 25], [0])
+# RG-LRU scan vs its plain version: the same products and sums in the same
+# order, each rounded to float32 (the kernel's __fmul_rn / __fadd_rn), so
+# they must be equal bit for bit; the relative bound is stated beside it
+RGLRU_REL_TOL = 1e-5
+
+
+def rglru_cost(B, S, W):
+    """Bytes and flops of one scan without h0: a and b read and y written
+    (float32), the final state written; a multiply and an add per step and
+    channel."""
+    return 4 * (3 * B * S * W + B * W), 2 * B * S * W
+
+
+def hybrid_kernel_rows(torch, timer, scan_ops, scan_ref, flash_ops,
+                       flash_ref, paged_ops, paged_ref, cfg):
+    """The hybrid's kernels at recurrentgemma-9b's widths, each against its
+    plain version on the card and timed with the L2 flushed: the RG-LRU
+    scan (W=4096, float32) at B=1 and B=8, S=512 and S=64, with and
+    without h0; the flash kernel at head dim 256 (BH=16, S=512, bf16) with
+    the model's 2048 window and a 128 one; the ring kernel at one kv head
+    of 16 queries, D=256, window 2048, over 1024- and 2048-slot caches at
+    positions past the window (the ring has wrapped).  Returns the scan's
+    row of the kernel table."""
+    F = torch.nn.functional
+    W, H, Hkv = cfg.rglru_width, cfg.n_heads, cfg.n_kv_heads
+    D, win = cfg.head_dim_, cfg.sliding_window
+    n_rep, scale = H // Hkv, cfg.head_dim_ ** -0.5
+    g = torch.Generator(device="cuda").manual_seed(19)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    err, timed = 0.0, {}
+    for B, S in ((1, 512), (1, 64), (8, 512), (8, 64)):
+        # the decays' range of the reference's sweep, inputs * 0.1
+        a = torch.rand((B, S, W), generator=g, device="cuda") * 0.299 + 0.7
+        b = randn(B, S, W) * 0.1
+        for h0 in (None, randn(B, W)):
+            y, last = scan_ops.rglru_scan(a, b, h0)
+            torch.cuda.synchronize()
+            want_y, want_last = scan_ref.rglru_scan_ref(a, b, h0)
+            e = (y - want_y).abs().max().item()
+            rel = e / want_y.abs().max().item()
+            same = torch.equal(y, want_y) and torch.equal(last, want_last)
+            print(f"[hybrid] rglru_scan B={B} S={S} W={W} float32"
+                  f"{' h0' if h0 is not None else ''}: max_abs_err={e:.3e} "
+                  f"relative to the largest value {rel:.3e} (tol "
+                  f"{RGLRU_REL_TOL}) bitwise equal {same}")
+            check(same and rel <= RGLRU_REL_TOL
+                  and bool(torch.isfinite(y).all()),
+                  f"rglru_scan disagrees with its plain version (B={B}, "
+                  f"S={S})")
+            err = max(err, e)
+        n_bytes, flops = rglru_cost(B, S, W)
+        bound, by = bound_ms(n_bytes, flops, F32_FLOP_PER_S)
+        t = {"ms": timer.ms(lambda: scan_ops.rglru_scan(a, b)),
+             "plain_ms": timer.ms(lambda: scan_ref.rglru_scan_ref(a, b)),
+             "library_ms": None, "bound_ms": bound, "bound_by": by}
+        timed[B, S] = t
+        print(f"[hybrid] rglru_scan timed B={B} S={S} W={W}: ms="
+              f"{t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms=none "
+              f"(no PyTorch call computes the recurrence) bound_ms="
+              f"{bound:.5f} ({by}; {n_bytes} B, {flops} flop; "
+              f"{B * W} threads)")
+
+    S = 512
+    for window in (win, 128):
+        q, k, v = (randn(H, S, D).to(torch.bfloat16) for _ in range(3))
+        got = flash_ops.flash_attention_bhsd(q, k, v, causal=True,
+                                             window=window, scale=scale)
+        torch.cuda.synchronize()
+        want = flash_ref.flash_attention_bhsd_ref(q, k, v, causal=True,
+                                                  window=window, scale=scale)
+        e = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), **KERNEL_TOL)
+        check(ok and bool(torch.isfinite(got).all()),
+              f"flash_attention_bhsd disagrees with its plain version at "
+              f"D={D} (window {window})")
+        n_bytes, flops = flash_cost(H, S, D, window)
+        bound, by = bound_ms(n_bytes, flops)
+        i = torch.arange(S, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        q4, k4, v4 = (x[None] for x in (q, k, v))
+        t = {"ms": timer.ms(lambda: flash_ops.flash_attention_bhsd(
+                 q, k, v, causal=True, window=window, scale=scale)),
+             "plain_ms": timer.ms(lambda: flash_ref.flash_attention_bhsd_ref(
+                 q, k, v, causal=True, window=window, scale=scale)),
+             "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                 q4, k4, v4, attn_mask=mask, scale=scale))}
+        print(f"[hybrid] flash_attention_bhsd D={D} BH={H} S={S} window="
+              f"{window} bf16: max_abs_err={e:.3e} tol={KERNEL_TOL} ok={ok};"
+              f" timed ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+              f"library_ms={t['library_ms']:.4f} (SDPA, boolean mask) "
+              f"bound_ms={bound:.5f} ({by}; {n_bytes} B, {flops} flop)")
+
+    B = 8
+    rng = np.random.default_rng(19)
+    for C, lo, hi in ((1024, 2048, 4096), (2048, 2048, 4096)):
+        pos = torch.from_numpy(rng.integers(lo, hi, B).astype(np.int32)).cuda()
+        q = randn(B, 1, H, D).to(torch.bfloat16)
+        ck, cv = (randn(B, C, Hkv, D).to(torch.bfloat16) for _ in range(2))
+        got = paged_ops.decode_attention_kernel(q, ck, cv, pos, window=win,
+                                                scale=scale, n_rep=n_rep)
+        torch.cuda.synchronize()
+        want = paged_ref.decode_ring_ref(q, ck, cv, pos, scale=scale,
+                                         n_rep=n_rep, window=win)
+        e = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), **KERNEL_TOL)
+        check(ok and bool(torch.isfinite(got).all()),
+              f"decode_ring disagrees with its plain version at D={D}, "
+              f"C={C}")
+        visible = paged_ref.ring_visible(pos, C, win)
+        n_bytes, flops = ring_cost(visible, H, Hkv, D)
+        bound, by = bound_ms(n_bytes, flops)
+        mask = visible[:, None, None, :]
+
+        def library():
+            kr = ck.repeat_interleave(n_rep, dim=2).transpose(1, 2)
+            vr = cv.repeat_interleave(n_rep, dim=2).transpose(1, 2)
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kr, vr, attn_mask=mask, scale=scale)
+
+        t = {"ms": timer.ms(lambda: paged_ops.decode_attention_kernel(
+                 q, ck, cv, pos, window=win, scale=scale, n_rep=n_rep)),
+             "plain_ms": timer.ms(lambda: paged_ref.decode_ring_ref(
+                 q, ck, cv, pos, scale=scale, n_rep=n_rep, window=win)),
+             "library_ms": timer.ms(library)}
+        print(f"[hybrid] decode_ring D={D} B={B} C={C} Hkv={Hkv} n_rep="
+              f"{n_rep} window={win} pos={pos.min().item()}.."
+              f"{pos.max().item()} (wrapped) bf16: max_abs_err={e:.3e} "
+              f"tol={KERNEL_TOL} ok={ok}; timed ms={t['ms']:.4f} plain_ms="
+              f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+              f"(repeat + SDPA) bound_ms={bound:.5f} ({by}; {n_bytes} B, "
+              f"{flops} flop; {B * Hkv} blocks on 132 SMs)")
+    return dict(source="src/repro_torch/csrc/rglru_scan.cu",
+                replaces="src/repro/kernels/rglru_scan/rglru_scan.py:50",
+                max_abs_err=err, **timed[1, 512])
+
+
+def hybrid_layer_counts(cfg):
+    """(recurrent layers, attention layers) of a hybrid config."""
+    n_att = sum((i + 1) % cfg.hybrid_period == 0 for i in range(cfg.n_layers))
+    return cfg.n_layers - n_att, n_att
+
+
+def hybrid_serve(torch, rt, model, params, counters, tally, prefill_chunk,
+                 profile):
+    """The serve trace on one recurrentgemma engine (greedy, 32 new tokens
+    each), the launch counters set to 0 just before and read just after,
+    then, with ``profile``, a profiled third wave.  With
+    ``prefill_chunk=0`` every admission is one monolithic prefill of its
+    left-padded bucket (the scan in each recurrent layer, the flash kernel
+    in each attention layer); with 8 the prompts run through the fused
+    step, 8 masked single steps, and neither launches.  Every single step
+    attends through the ring kernel in each attention layer.  Returns
+    (engine, requests, launches)."""
+    from repro_torch.serving import Request, SamplingParams
+
+    cfg = model.cfg
+    n_rec, n_att = hybrid_layer_counts(cfg)
+    label = f"prefill_chunk={prefill_chunk}"
+    engine = rt.InferenceEngine(model, params, max_batch=8, max_seq=1024,
+                                prefill_chunk=prefill_chunk)
+    tally.reset()
+    for c in counters.values():
+        c.launches = 0
+    reqs, step_ms, wall = run_trace(engine, cfg.vocab_size, Request,
+                                    SamplingParams(max_new_tokens=32))
+    launches = {name: c.launches for name, c in counters.items()}
+    calls, widths = dict(tally.calls), sorted(tally.widths)
+    steps = tally.single_steps
+    m = engine.metrics
+    check(all(r.finished and len(r.generated) == 32 for r in reqs),
+          f"hybrid, {label}: not every request finished with 32 tokens")
+    check(all(r.decode_path == "fused" for r in reqs),
+          f"hybrid, {label}: a request took another decode path")
+    stored = [engine.pool.load(r.session_id) for r in reqs]
+    check(m.completed == len(reqs) and m.prefix_hits == 0
+          and all(x is not None and x[1] > 0 for x in stored),
+          f"hybrid, {label}: metrics {m}, or a finished session was not "
+          f"stored in the state pool")
+    admissions = len(reqs) if prefill_chunk == 0 else 0
+    check(calls["prefill"] == admissions
+          and launches["rglru_scan"] == n_rec * admissions
+          and launches["flash_attention_bhsd"] == n_att * admissions,
+          f"hybrid, {label}: {calls['prefill']} prefills launched "
+          f"rglru_scan {launches['rglru_scan']} and flash_attention_bhsd "
+          f"{launches['flash_attention_bhsd']} times (want {n_rec} and "
+          f"{n_att} per admission, {admissions} admissions)")
+    check(launches["decode_ring"] == n_att * steps,
+          f"hybrid, {label}: decode_ring launched {launches['decode_ring']} "
+          f"times over {steps} single steps (want {n_att} each)")
+    check(all(launches[k] == 0 for k in ("paged_decode_chunk", "moe_ffn",
+                                         "ssd_chunk_scan")),
+          f"hybrid, {label}: a kernel off this path launched: {launches}")
+    check(prefill_chunk == 0 or 8 in widths,
+          f"hybrid, {label}: no fused step of 8 tokens ran (widths "
+          f"{widths})")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          f"hybrid, {label}: a token is outside the vocabulary")
+    gen = m.tokens_generated
+    per = (f"; per admission rglru_scan {launches['rglru_scan'] // admissions}"
+           f", flash_attention_bhsd "
+           f"{launches['flash_attention_bhsd'] // admissions}"
+           if admissions else "")
+    print(f"[hybrid] {label}: {len(reqs)} requests, {gen} tokens in "
+          f"{wall:.2f} s: {gen / wall:.1f} generated tok/s, "
+          f"{(m.prefill_tokens + gen) / wall:.1f} processed tok/s; "
+          f"{m.decode_steps} steps, step ms p50 "
+          f"{np.percentile(step_ms, 50):.2f} p99 "
+          f"{np.percentile(step_ms, 99):.2f}; forwards {calls}, chunk "
+          f"widths {widths}, {steps} single steps ("
+          f"{launches['decode_ring'] / max(steps, 1):.0f} decode_ring each)"
+          f"{per}; launches {launches}")
+    if profile:
+        profile_window(torch, engine, cfg, Request,
+                       SamplingParams(max_new_tokens=16))
+    return engine, reqs, launches
+
+
+def hybrid_cut(cfg, params):
+    """The five-layer cut (``HYBRID_CUT``) of a full-depth hybrid: its
+    config and its parameters (the layers copied, the embedding shared)."""
+    rec, att = HYBRID_CUT
+
+    def take(tree, idx):
+        return {k: take(v, idx) if isinstance(v, dict) else v[idx]
+                for k, v in tree.items()}
+
+    return cfg.replace(n_layers=5), {
+        "embed": params["embed"], "final_norm": params["final_norm"],
+        "rec_layers": take(params["rec_layers"], rec),
+        "att_layers": take(params["att_layers"], att)}
+
+
+def hybrid_logits_check(torch, rt, cut_model, cut_params, counters):
+    """On the cut: next-token logits of two prompts through prefill and one
+    ``decode_step`` after it, on the card in bf16 and in float32 against
+    the CPU in float32, with a CPU bf16 witness (the same bf16 weights
+    through the plain versions: what bf16 alone costs); on the card in
+    float32, prefill's last logits against ``decode_chunk`` over the same
+    prompt from a zero state (the recurrence and the ring, per token).
+    Then a prompt of 2100 tokens (past the 2048 window), prefilled into the
+    2048-slot ring and stepped 4 times over the wrapped ring: card float32
+    against CPU float32 at every step."""
+    cfg = cut_model.cfg
+    n_rec, n_att = hybrid_layer_counts(cfg)
+    f32_model = rt.build_model(cfg.replace(dtype="float32"))
+    f32_card = to_f32(cut_params, "cuda")
+    f32_cpu = to_f32(cut_params)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (23, 61)]
+    runs = {}
+    for label, mdl, prm, dev in (("bf16", cut_model, cut_params, "cuda"),
+                                 ("f32", f32_model, f32_card, "cuda"),
+                                 ("cpu", f32_model, f32_cpu, "cpu"),
+                                 ("cpu-bf16", cut_model, to_cpu(cut_params),
+                                  "cpu")):
+        runs[label] = []
+        for p in prompts:
+            toks = torch.from_numpy(p[None]).to(dev)
+            for c in counters.values():
+                c.launches = 0
+            logits, cache = mdl.prefill(prm, {"tokens": toks},
+                                        pad_cache_to=128)
+            got = (counters["rglru_scan"].launches,
+                   counters["flash_attention_bhsd"].launches)
+            want = (n_rec, n_att) if dev == "cuda" else (0, 0)
+            check(got == want, f"{label} prefill launched (rglru_scan, "
+                  f"flash_attention_bhsd) {got}, want {want}")
+            step, _ = mdl.decode_step(prm, toks[:, 0], cache)
+            n = counters["decode_ring"].launches
+            check(n == (n_att if dev == "cuda" else 0),
+                  f"{label} decode_step launched decode_ring {n} times")
+            row = [logits[0].float().cpu(), step[0].float().cpu()]
+            if dev == "cuda":
+                chunk, _ = mdl.decode_chunk(
+                    prm, toks, torch.tensor([len(p)], dtype=torch.int32,
+                                            device=dev),
+                    mdl.init_cache(1, 4096, device=dev))
+                row.append(chunk[0, -1].float().cpu())
+            runs[label].append(row)
+        del prm
+    for i, prompt in enumerate(prompts):
+        for j, name in enumerate(("prefill", "decode_step")):
+            ref = runs["cpu"][i][j]
+            tag = f"{cfg.arch_id} cut prompt of {len(prompt)}: {name}"
+            same, gap, err = compare_logits(torch, tag, runs["bf16"][i][j],
+                                            ref)
+            check(same or gap <= err,
+                  f"{tag}: card bf16 and CPU argmax differ by a CPU logit "
+                  f"gap of {gap:.3e} > the runs' max difference {err:.3e}")
+            same, _, _ = compare_logits(torch, tag, runs["f32"][i][j], ref,
+                                        tol=F32_REL_L2_TOL, card_type="f32")
+            check(same, f"{tag}: card f32 and CPU argmax differ")
+            wit = runs["cpu-bf16"][i][j]
+            check(bool(torch.isfinite(wit).all()),
+                  f"{tag}: CPU bf16 logits are not finite")
+            card_rel = ((runs["bf16"][i][j] - ref).norm() / ref.norm()).item()
+            cpu_rel = ((wit - ref).norm() / ref.norm()).item()
+            print(f"[hybrid] bf16 witness, {tag}: rel_l2 from CPU f32: card "
+                  f"bf16 {card_rel:.3e}, CPU bf16 {cpu_rel:.3e} (card/CPU "
+                  f"{card_rel / cpu_rel:.2f}); card margin to the bound "
+                  f"{LOGITS_REL_L2_TOL - card_rel:.3e}")
+        pre, rec = runs["bf16"][i][0], runs["bf16"][i][2]
+        print(f"[hybrid] cut prompt of {len(prompt)}, card bf16: prefill vs "
+              f"decode_chunk last logits rel_l2="
+              f"{((pre - rec).norm() / rec.norm()).item():.3e} argmax equal "
+              f"{int(pre.argmax()) == int(rec.argmax())} (reported, not "
+              f"held: the two forms round differently in bf16; float32 is "
+              f"held next)")
+        pre, rec = runs["f32"][i][0], runs["f32"][i][2]
+        rel = ((pre - rec).norm() / rec.norm()).item()
+        same = int(pre.argmax()) == int(rec.argmax())
+        print(f"[hybrid] cut prompt of {len(prompt)}, card f32: prefill "
+              f"(scan, flash) vs decode_chunk (recurrence, ring) last logits "
+              f"rel_l2={rel:.3e} (tol {F32_REL_L2_TOL}) argmax equal {same}")
+        check(rel <= F32_REL_L2_TOL and same,
+              f"prompt of {len(prompt)}: prefill and the recurrence disagree "
+              f"on the card in float32")
+
+    # past the window: the prefill rolls its last 2048 positions into the
+    # ring, and every decode_step overwrites its oldest slot
+    prompt = np.random.default_rng(11).integers(0, cfg.vocab_size, (1, 2100))
+    rows, fed = {}, []
+    for label, prm, dev in (("f32", f32_card, "cuda"), ("cpu", f32_cpu,
+                                                        "cpu")):
+        logits, cache = f32_model.prefill(
+            prm, {"tokens": torch.from_numpy(prompt).to(dev)},
+            pad_cache_to=4096)
+        check(cache["k"].shape[2] == cfg.sliding_window,
+              f"the cut's prefill ring has {cache['k'].shape[2]} slots")
+        rows[label] = [logits[0].float().cpu()]
+        tok = torch.argmax(logits, -1)
+        for t in range(4):
+            if label == "f32":
+                fed.append(tok.cpu())     # the card's tokens feed both runs
+            out, cache = f32_model.decode_step(prm, fed[t].to(dev), cache)
+            rows[label].append(out[0].float().cpu())
+            tok = torch.argmax(out, -1)
+        check(cache["pos"].tolist() == [2104], "wrapped-ring positions")
+    for t, (card, ref) in enumerate(zip(rows["f32"], rows["cpu"])):
+        name = "prefill" if t == 0 else f"decode_step {t}"
+        same, _, _ = compare_logits(
+            torch, f"{cfg.arch_id} cut, 2100 tokens past the window: {name}",
+            card, ref, tol=F32_REL_L2_TOL, card_type="f32")
+        check(same, f"the cut's wrapped ring: card f32 and CPU argmax "
+              f"differ at {name}")
+    del f32_card, f32_cpu
+
+
+def hybrid_ring_wrap(torch, rt, model, params, counters, steps=32):
+    """Full depth, past the window: two prompts of 2300 tokens prefilled
+    with ``pad_cache_to`` (the 2048-slot ring, rolled), then ``steps``
+    ``decode_step``s over the wrapped ring, in bf16 and in float32 on the
+    card (the weights upcast; the bf16 run's greedy tokens feed both).
+    bf16 logits are held against float32 at the prefill and at every step:
+    relative L2 within the bound, argmax equal unless tied within the two
+    rows' largest difference."""
+    cfg = model.cfg
+    n_rec, n_att = hybrid_layer_counts(cfg)
+    S, B = 2300, 2
+    toks = torch.from_numpy(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+    f32_model = rt.build_model(cfg.replace(dtype="float32"))
+    rows, fed = {}, []
+    for label in ("bf16", "f32"):
+        mdl, prm = ((model, params) if label == "bf16" else
+                    (f32_model, to_f32(params, "cuda")))
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        logits, cache = mdl.prefill(prm, {"tokens": toks}, pad_cache_to=4096)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        got = (counters["rglru_scan"].launches,
+               counters["flash_attention_bhsd"].launches)
+        check(got == (n_rec, n_att)
+              and tuple(cache["k"].shape) == (n_att, B, cfg.sliding_window,
+                                              cfg.n_kv_heads, cfg.head_dim_),
+              f"{label} prefill of {S}: launches {got}, ring "
+              f"{tuple(cache['k'].shape)}")
+        rows[label] = [logits.float().cpu()]
+        tok = torch.argmax(logits, -1)
+        for c in counters.values():
+            c.launches = 0
+        step_ms = []
+        for t in range(steps):
+            if label == "bf16":
+                fed.append(tok)
+            t0 = time.perf_counter()
+            out, cache = mdl.decode_step(prm, fed[t], cache)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            rows[label].append(out.float().cpu())
+            tok = torch.argmax(out, -1)
+        n = counters["decode_ring"].launches
+        check(n == n_att * steps and cache["pos"].tolist() == [S + steps] * B
+              and bool(torch.isfinite(out).all()),
+              f"{label}: decode_ring launched {n} times in {steps} steps "
+              f"(want {n_att} each), positions {cache['pos'].tolist()}")
+        print(f"[hybrid] full depth, {label}: prefill of {B} x {S} tokens "
+              f"{pre_ms:.1f} ms ({got[0]} rglru_scan, {got[1]} flash "
+              f"launches, ring {cfg.sliding_window} slots rolled); {steps} "
+              f"decode_steps over the wrapped ring, step ms p50 "
+              f"{np.percentile(step_ms, 50):.2f} ({n_att} decode_ring each)")
+        del prm, cache
+        torch.cuda.empty_cache()
+    worst, ties = 0.0, 0
+    for t, (card, ref) in enumerate(zip(rows["bf16"], rows["f32"])):
+        for b in range(B):
+            a, r = card[b], ref[b]
+            rel = ((a - r).norm() / r.norm()).item()
+            err = (a - r).abs().max().item()
+            x, y = int(a.argmax()), int(r.argmax())
+            gap = (r[y] - r[x]).item()
+            worst = max(worst, rel)
+            ties += x != y
+            name = "prefill" if t == 0 else f"decode_step {t}"
+            check(bool(torch.isfinite(a).all()) and rel <= LOGITS_REL_L2_TOL,
+                  f"full depth, {name} row {b}: bf16 vs f32 rel_l2 {rel:.3e}")
+            check(x == y or gap <= err,
+                  f"full depth, {name} row {b}: bf16 and f32 argmax differ "
+                  f"by an f32 logit gap of {gap:.3e} > the rows' max "
+                  f"difference {err:.3e}")
+            if t in (0, 1, steps):
+                print(f"[hybrid] full depth {name} row {b}: card bf16 vs "
+                      f"card f32 rel_l2={rel:.3e} (tol {LOGITS_REL_L2_TOL}) "
+                      f"max_abs={err:.3e} argmax {x} vs {y} (f32 gap "
+                      f"{gap:.3e})")
+    print(f"[hybrid] full depth over {len(rows['bf16'])} x {B} rows: worst "
+          f"bf16 vs f32 rel_l2 {worst:.3e} (tol {LOGITS_REL_L2_TOL}); "
+          f"{ties} argmax differences, each within the rows' max "
+          f"difference")
+
+
+def hybrid_fused_vs_masked(torch, rt, cut_model, cut_params, counters):
+    """Float32 on the card, on the cut: the fused step (``decode_chunk``),
+    the per-token masked step (a model without ``decode_chunk``) and a
+    ``prefill_chunk=0`` engine give the same greedy tokens on 4 requests
+    whose prompts fill their buckets (16, 32, 64 and 128 tokens).  A
+    shorter prompt is left-padded to its bucket on a ``prefill_chunk=0``
+    engine, and the pads then enter the recurrence and the attention
+    window (as on the reference): a different function, so on 4 ragged
+    prompts the monolithic engine's agreement is reported, not held."""
+    import dataclasses
+    from repro_torch.serving import Request, SamplingParams
+
+    f32_model = rt.build_model(cut_model.cfg.replace(dtype="float32"))
+    f32_params = to_f32(cut_params, "cuda")
+    n_rec, _ = hybrid_layer_counts(f32_model.cfg)
+    rng = np.random.default_rng(9)
+    vocab = f32_model.cfg.vocab_size
+    full = [rng.integers(0, vocab, n) for n in (16, 32, 64, 128)]
+    ragged = [rng.integers(0, vocab, int(n)) for n in rng.integers(20, 61, 4)]
+    toks = {}
+    for path, mdl, chunk in (
+            ("fused", f32_model, 8),
+            ("masked", dataclasses.replace(f32_model, decode_chunk=None), 8),
+            ("monolithic", f32_model, 0)):
+        for kind, prompts in (("full", full), ("ragged", ragged)):
+            engine = rt.InferenceEngine(mdl, f32_params, max_batch=4,
+                                        max_seq=256, prefill_chunk=chunk)
+            counters["rglru_scan"].launches = 0
+            reqs = [Request.make(p, session_id=f"fm{i}",
+                                 sampling=SamplingParams(max_new_tokens=8))
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                engine.submit(r)
+            engine.run_until_idle()
+            n = counters["rglru_scan"].launches
+            want = path if chunk else "fused"
+            check(all(r.finished and r.decode_path == want for r in reqs)
+                  and n == (0 if chunk else 4 * n_rec),
+                  f"hybrid {path}: a request did not finish on the {want} "
+                  f"path, or the scan launched {n} times")
+            toks[path, kind] = [list(r.generated) for r in reqs]
+    same = {(path, kind): sum(a == b for a, b in zip(toks["fused", kind], t))
+            for (path, kind), t in toks.items() if path != "fused"}
+    print(f"[hybrid] float32 cut: requests with the fused step's greedy "
+          f"tokens out of 4: {same} (held: masked on both sets, monolithic "
+          f"on prompts that fill their buckets; monolithic on ragged "
+          f"prompts reported: its pads enter the recurrence and window)")
+    check(same["masked", "full"] == same["masked", "ragged"]
+          == same["monolithic", "full"] == 4,
+          "hybrid: the fused, masked and monolithic paths disagree")
+    del f32_params
+
+
+def phase_hybrid(torch, rt, counters, timer, scan_ops, scan_ref, flash_ops,
+                 flash_ref, paged_ops, paged_ref):
+    """recurrentgemma-9b at full width (random weights from a seed; mamba2
+    freed first) on the engine's state-cache plane: the hybrid's kernel
+    rows; the serve trace in bf16 on a ``prefill_chunk=0`` engine and on a
+    ``prefill_chunk=8`` one (a profiled wave on the first); a
+    ``warm_session`` and an ``export_session`` -> ``import_session`` onto
+    the other engine; logits of the five-layer cut against the CPU; the
+    full depth past the window, bf16 against float32; and the float32
+    paths' tokens on the cut.  Returns (the scan's kernel row, its
+    launches on the ``prefill_chunk=0`` serve trace)."""
+    cfg = rt.get_config("recurrentgemma-9b")
+    row = hybrid_kernel_rows(torch, timer, scan_ops, scan_ref, flash_ops,
+                             flash_ref, paged_ops, paged_ref, cfg)
+    n_rec, n_att = hybrid_layer_counts(cfg)
+    t0 = time.perf_counter()
+    model = rt.build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    leaves = list(tree_leaves(params))
+    n_params = sum(v.numel() for v in leaves)
+    n_bytes = sum(v.numel() * v.element_size() for v in leaves)
+    print(f"[hybrid] {cfg.arch_id}: {cfg.n_layers} layers ({n_rec} "
+          f"recurrent, {n_att} local attention, window "
+          f"{cfg.sliding_window}), d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.head_dim_}, d_ff "
+          f"{cfg.d_ff}, RG-LRU width {cfg.rglru_width}, conv {cfg.ssm_conv}, "
+          f"vocab {cfg.vocab_size}; {n_params} params in {cfg.dtype}, "
+          f"{n_bytes / 2**30:.1f} GiB; set up in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tally = ForwardTally(model)
+    mono, mono_reqs, launches = hybrid_serve(torch, rt, model, params,
+                                             counters, tally, 0, True)
+    fused, fused_reqs, _ = hybrid_serve(torch, rt, model, params, counters,
+                                        tally, 8, False)
+    print(f"[time] hybrid: served, {time.perf_counter() - t0:.1f} s into "
+          f"the phase's set-up")
+    same = sum(list(a.generated) == list(b.generated)
+               for a, b in zip(mono_reqs, fused_reqs))
+    print(f"[hybrid] bf16: {same}/{len(mono_reqs)} requests with the same "
+          f"greedy tokens on the prefill_chunk=0 and prefill_chunk=8 "
+          f"engines (reported, not held: the left-padded bucket's pads "
+          f"enter the recurrence and the window of a monolithic admission, "
+          f"and the two forms round differently in bf16; float32 is held "
+          f"on the cut)")
+
+    warm_toks = np.random.default_rng(1).integers(0, cfg.vocab_size, 300)
+    for c in counters.values():
+        c.launches = 0
+    t = time.perf_counter()
+    warmed = mono.warm_session("replay0", [int(x) for x in warm_toks])
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t) * 1e3
+    got = (counters["rglru_scan"].launches,
+           counters["flash_attention_bhsd"].launches)
+    check(warmed == 512 and got == (n_rec, n_att),
+          f"warm_session stored {warmed} tokens with (rglru_scan, "
+          f"flash_attention_bhsd) launches {got} (want 512 and "
+          f"{(n_rec, n_att)})")
+    payload = mono.pool.export_session("replay0")
+    check(fused.pool.import_session("replay0", payload),
+          "import_session refused the session")
+    state, tokens = fused.pool.load("replay0")
+    before = {k: v.clone() for k, v in payload[0].items()}
+    check(tokens == 512 and set(state) == {"conv", "h", "k", "v", "pos"}
+          and all(torch.equal(state[k], before[k])
+                  and state[k].data_ptr() != payload[0][k].data_ptr()
+                  for k in state),
+          "the imported session differs from the exported one or shares "
+          "its tensors")
+    for v in payload[0].values():
+        v.add_(1)
+    check(all(torch.equal(v, before[k]) for k, v in state.items()),
+          "an in-place change to the exported row reached the imported one")
+    print(f"[hybrid] warm_session(300 tokens, bucket 512) {warm_ms:.1f} ms "
+          f"with {got[0]} rglru_scan and {got[1]} flash_attention_bhsd "
+          f"launches; import_session copied "
+          f"{sum(v.numel() * v.element_size() for v in state.values())} "
+          f"bytes of state (conv, h, K/V rings of {state['k'].shape[2]} "
+          f"slots) into tensors of its own")
+    del mono, fused, mono_reqs, fused_reqs, payload, state, before
+    torch.cuda.empty_cache()
+
+    cut_cfg, cut_params = hybrid_cut(cfg, params)
+    cut_model = rt.build_model(cut_cfg)
+    hybrid_logits_check(torch, rt, cut_model, cut_params, counters)
+    print(f"[time] hybrid: cut held against the CPU, "
+          f"{time.perf_counter() - t0:.1f} s into the phase's set-up")
+    hybrid_fused_vs_masked(torch, rt, cut_model, cut_params, counters)
+    print(f"[time] hybrid: float32 paths, {time.perf_counter() - t0:.1f} s "
+          f"into the phase's set-up")
+    del cut_params
+    torch.cuda.empty_cache()
+    hybrid_ring_wrap(torch, rt, model, params, counters)
+    print(f"[time] hybrid: full depth, {time.perf_counter() - t0:.1f} s "
+          f"into the phase's set-up")
+    return row, launches["rglru_scan"]
+
+
 def main() -> int:
     import torch
 
@@ -1444,6 +2080,8 @@ def main() -> int:
     from repro_torch.kernels.moe_ffn import ref as moe_ref
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.kernels.paged_attention import ref as paged_ref
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    from repro_torch.kernels.rglru_scan import ref as scan_ref
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
 
@@ -1457,16 +2095,19 @@ def main() -> int:
                 "flash_attention_bhsd": flash_ops.flash_attention_bhsd,
                 "decode_ring": paged_ops.decode_attention_kernel,
                 "moe_ffn": moe_ops.moe_ffn,
-                "ssd_chunk_scan": ssd_ops.ssd_chunk_scan}
+                "ssd_chunk_scan": ssd_ops.ssd_chunk_scan,
+                "rglru_scan": scan_ops.rglru_scan}
     decode_batch, decode_prompt = 8, 256
     try:
         phase_build(_build)
-        rows = phase_kernels(torch, Timer(torch), paged_ops, paged_ref,
+        timer = Timer(torch)
+        rows = phase_kernels(torch, timer, paged_ops, paged_ref,
                              flash_ops, flash_ref, moe_ops, moe_ref, ssd_ops,
                              ssd_ref, cfg, moe_cfg, ssm_cfg, decode_batch,
                              decode_prompt)
         model, params, launches, paged_tokens = phase_serve(torch, rt, cfg,
                                                             counters)
+        print(f"[time] serve done at {time.perf_counter() - t_start:.1f} s")
         cpu_params = to_f32(params)
         phase_check(torch, rt, model, params, cfg, cpu_params)
         launches["decode_ring"] = phase_decode(
@@ -1475,9 +2116,17 @@ def main() -> int:
         phase_dense(torch, rt, cfg, model, params, counters, paged_tokens)
         del model, params, cpu_params
         torch.cuda.empty_cache()
+        print(f"[time] qwen3 phases done at "
+              f"{time.perf_counter() - t_start:.1f} s")
         launches["moe_ffn"] = phase_moe(torch, rt, counters)
+        print(f"[time] moe done at {time.perf_counter() - t_start:.1f} s")
         torch.cuda.empty_cache()
         launches["ssd_chunk_scan"] = phase_ssm(torch, rt, counters)
+        print(f"[time] ssm done at {time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
+        rows["rglru_scan"], launches["rglru_scan"] = phase_hybrid(
+            torch, rt, counters, timer, scan_ops, scan_ref, flash_ops,
+            flash_ref, paged_ops, paged_ref)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -14,13 +14,15 @@ from typing import Dict, List
 from .base import ModelConfig
 
 ARCH_IDS: List[str] = ["qwen3_0_6b", "qwen3_moe_235b_a22b",
-                       "granite_moe_1b_a400m", "mamba2_130m"]
+                       "granite_moe_1b_a400m", "mamba2_130m",
+                       "recurrentgemma_9b"]
 
 _ALIASES: Dict[str, str] = {
     "qwen3-0.6b": "qwen3_0_6b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "mamba2-130m": "mamba2_130m",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 
@@ -34,7 +36,7 @@ def _module(arch_id: str):
         raise KeyError(
             f"arch {arch_id!r} is not ported yet (the port has {ARCH_IDS}); "
             f"the other architectures wait in ROADMAP.md queue A "
-            f"(items A11-A13)")
+            f"(items A11-A12)")
     return importlib.import_module(f".{name}", __name__)
 
 

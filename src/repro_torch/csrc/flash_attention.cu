@@ -28,10 +28,18 @@
 // and its inner loops read shared memory twice per FMA, which is what holds
 // it at ~0.34 ms for S = 512 (chip_smoke.py on an H100 80GB HBM3 at 700 W).
 // Its design keeps every tile in shared memory (one block per (bh, 64-row
-// q-tile), a loop over 64-row kv-tiles in the block in place of the TPU's
+// q-tile), a loop over kv-tiles in the block in place of the TPU's
 // sequential grid axis) so that each q/k/v byte is read from device memory
 // once per block.  The tensor-core version (mma/wgmma on bf16 tiles) is
 // later work.
+//
+// Tiles by head dim.  The tiles live in f32 shared memory, BQ x (D+1) for
+// q, BK x (D+1) for k, BK x D for v, BQ x BK scores, BQ x D for the
+// accumulator: for D <= 128 the kv-tile is 64 rows (at most 165,632 bytes),
+// for 128 < D <= 256 (RecurrentGemma's 256) it is 32 rows, 205,952 bytes at
+// D = 256 where 64 rows would need 279,808, past the 232,448 a block may
+// use.  The D <= 128 instantiation is the one this kernel always had, so
+// those calls compute exactly what they did.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,8 +50,8 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int BQ = 64;
-constexpr int BK = 64;
+constexpr int BQ = 64;        // query rows per block, every head dim
+constexpr int kMaxHeadDim = 256;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -94,7 +102,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
+template <typename T, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
@@ -191,24 +199,37 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int BH,
-           int Sq, int Skv, int D, float scale, int causal, int window,
-           cudaStream_t stream) {
+template <typename T, int BK>
+int launch_tiles(const void* q, const void* k, const void* v, void* out,
+                 int BH, int Sq, int Skv, int D, float scale, int causal,
+                 int window, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       (static_cast<size_t>(BQ) * (D + 1) + static_cast<size_t>(BK) * (D + 1) +
        static_cast<size_t>(BK) * D + static_cast<size_t>(BQ) * BK +
        static_cast<size_t>(BQ) * D + 3 * static_cast<size_t>(BQ));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<T, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(BH, (Sq + BQ - 1) / BQ);
-  flash_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_kernel<T, BK><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, D, scale,
       causal, window);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kv-tile from the head dim (see "Tiles by head dim" above).
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* out, int BH,
+           int Sq, int Skv, int D, float scale, int causal, int window,
+           cudaStream_t stream) {
+  if (D > kMaxHeadDim) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 128)
+    return launch_tiles<T, 64>(q, k, v, out, BH, Sq, Skv, D, scale, causal,
+                               window, stream);
+  return launch_tiles<T, 32>(q, k, v, out, BH, Sq, Skv, D, scale, causal,
+                             window, stream);
 }
 
 }  // namespace

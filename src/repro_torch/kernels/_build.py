@@ -29,6 +29,7 @@ SOURCES: Dict[str, str] = {
     "decode_ring": "decode_ring.cu",
     "moe_ffn": "moe_ffn.cu",
     "ssd": "ssd.cu",
+    "rglru_scan": "rglru_scan.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -17,7 +17,7 @@ import torch
 from .. import _build
 from .ref import flash_attention_bhsd_ref
 
-MAX_HEAD_DIM = 128        # the kernel's shared-memory tiles are sized for it
+MAX_HEAD_DIM = 256        # the kernel's shared-memory tiles are sized for it
 
 
 @functools.lru_cache(maxsize=None)

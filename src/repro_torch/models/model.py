@@ -5,10 +5,11 @@ entry points: the paged plane's ``prefill`` and ``decode_chunk_paged``, and
 the dense slot-cache plane's ``init_cache``, ``decode_step`` and
 ``decode_chunk``.  The dense and MoE rms/swiglu families are ported,
 sliding windows included; the MoE layers run the reference's serving
-dispatch (``moe_serve_impl="dropless"``).  The ssm family (mamba2) has no
-pages: its ``decode_chunk_paged`` is None, and the engine keeps its O(1)
-state in a ``StateCachePool``.  The other families raise, naming the
-ROADMAP item that ports them.
+dispatch (``moe_serve_impl="dropless"``).  The ssm family (mamba2) and the
+hybrid family (recurrentgemma) have no pages: their ``decode_chunk_paged``
+is None, and the engine keeps their decode state (and the hybrid's
+sliding-window K/V rings) in a ``StateCachePool``.  The other families
+raise, naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from . import ssm, transformer
+from . import rglru, ssm, transformer
 
 
 @dataclass
@@ -41,15 +42,15 @@ class Model:
     # v_pages); the pages are updated in place.  None for the ssm family.
     decode_chunk_paged: Optional[Callable[..., Any]]
     # init_cache(batch, max_seq, device=None) -> {"k", "v", "pos"}, or
-    # {"conv", "ssm", "pos"} for the ssm family
+    # {"conv", "ssm", "pos"} for the ssm family, {"conv", "h", "k", "v",
+    # "pos"} for the hybrid
     init_cache: Callable[..., dict]
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = []
-    if cfg.family not in ("dense", "moe", "ssm"):
-        item = "A13, with kernel B6" if cfg.family == "hybrid" else "A12"
-        unsupported.append(f"family {cfg.family!r} (ROADMAP.md {item})")
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        unsupported.append(f"family {cfg.family!r} (ROADMAP.md A12)")
     if cfg.norm_type != "rms" or cfg.mlp_type != "swiglu":
         unsupported.append("layer norm / gelu MLPs (ROADMAP.md A11)")
     if unsupported:
@@ -72,6 +73,20 @@ def build_model(cfg: ModelConfig) -> Model:
                 params, cfg, toks, n, cache),
             decode_chunk_paged=None,
             init_cache=functools.partial(ssm.init_cache, cfg),
+        )
+    if cfg.family == "hybrid":
+        return Model(
+            cfg=cfg,
+            init=lambda generator, device=None: rglru.init_params(
+                cfg, generator, device),
+            prefill=lambda params, batch, **kw: rglru.prefill(
+                params, cfg, batch["tokens"], **kw),
+            decode_step=lambda params, tok, cache: rglru.decode_step(
+                params, cfg, tok, cache),
+            decode_chunk=lambda params, toks, n, cache: rglru.decode_chunk(
+                params, cfg, toks, n, cache),
+            decode_chunk_paged=None,
+            init_cache=functools.partial(rglru.init_cache, cfg),
         )
     return Model(
         cfg=cfg,

@@ -1,7 +1,7 @@
 """PyTorch inference engine: slot-based continuous batching.
 
-The port of the JAX package's ``serving/engine.py`` for the dense, MoE and
-ssm families, on its three data planes:
+The port of the JAX package's ``serving/engine.py`` for the dense, MoE,
+ssm and hybrid families, on its three data planes:
 
   * the paged-native plane (the default): ``max_batch`` slots decode
     straight into the session pages of one ``PagedKVPool``; each step feeds
@@ -14,8 +14,10 @@ ssm families, on its three data planes:
     a resumed session is gathered from the pool into its slot row
     (``gather_contiguous``) and a finished one written back
     (``write_session``);
-  * the state-cache plane (the ssm family, whose decode state is O(1)):
-    the slots share the model's conv and SSM state rows, stepped by
+  * the state-cache plane (the ssm and hybrid families, whose decode state
+    is O(1) per recurrent layer): the slots share the model's conv and
+    recurrent state rows (and the hybrid's sliding-window K/V rings),
+    stepped by
     ``model.decode_chunk`` (or, for a model without one, per-token masked
     ``decode_step``s); a finished session's row is stored in a
     ``StateCachePool``, and a resumed session is prefilled cold, as on the
@@ -34,7 +36,7 @@ The device is ``torch.device("cuda")`` unless the caller names another;
 each step copies only the [B] greedy tokens to the host (the [B,V]
 next-token rows stay on the device unless a stochastic request samples
 from them).  Not ported yet (ROADMAP.md): speculative decoding
-(``draft_model``), the hybrid, vlm and audio families, request
+(``draft_model``), the vlm and audio families, request
 ``extras``, and the runtime-facing plumbing of the bridge (KV registry
 hooks, completion callbacks, token streaming).
 """
@@ -92,9 +94,11 @@ class EngineMetrics:
 
 
 # the families the port serves; the reference's _CHUNKABLE_FAMILIES also
-# has hybrid and vlm.  Nothing else in the engine is MoE-specific: the MoE
-# layers live inside the model's entry points.
-_SERVED_FAMILIES = ("dense", "moe", "ssm")
+# has vlm.  Nothing else in the engine is MoE-specific: the MoE layers live
+# inside the model's entry points.
+_SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the families whose sessions live in a StateCachePool, as on the reference
+_STATE_FAMILIES = ("ssm", "hybrid")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -151,9 +155,8 @@ class InferenceEngine:
         self.model = model
         self.cfg: ModelConfig = model.cfg
         if self.cfg.family not in _SERVED_FAMILIES:
-            item = "A13" if self.cfg.family == "hybrid" else "A12"
             raise _not_ported(f"serving the {self.cfg.family!r} family",
-                              item)
+                              "A12")
         self.device = resolve_device(device)
         self.params = params
         self.max_batch = max_batch
@@ -178,10 +181,10 @@ class InferenceEngine:
         # request_id -> private generator (stochastic sampling only)
         self._req_gen: Dict[str, torch.Generator] = {}
 
-        # session cache pool: paged K/V for the attention families, O(1)
-        # state rows for ssm
+        # session cache pool: paged K/V for the attention families, state
+        # rows for ssm and hybrid
         self.pool: Any
-        self._state_pool = self.cfg.family == "ssm"
+        self._state_pool = self.cfg.family in _STATE_FAMILIES
         if self._state_pool:
             self.pool = StateCachePool(self.cfg)
         else:
@@ -205,8 +208,9 @@ class InferenceEngine:
         # dense per-slot cache length
         self._slot_C = min(self.max_seq, W) if W else self.max_seq
         # dense plane: the per-slot k/v [L,B,C,Hkv,Dh]; state-cache plane:
-        # conv [L,B,K-1,C] and ssm [L,B,H,P,N] (the slots' positions live on
-        # the host in _pos on every plane)
+        # conv [L,B,K-1,C] and ssm [L,B,H,P,N], or the hybrid's conv, h
+        # [L_rec,B,W] and k/v rings [L_att,B,C,Hkv,Dh] (the slots' positions
+        # live on the host in _pos on every plane)
         self.cache: Dict[str, torch.Tensor] = {}
         self._blank_row_cache: Optional[Dict[str, torch.Tensor]] = None
         if self._paged:
@@ -810,8 +814,8 @@ class InferenceEngine:
         cache = dict(self.cache, pos=torch.from_numpy(self._pos).to(dev))
         logits, new = self.model.decode_chunk(
             self.params, torch.from_numpy(toks).to(dev), valid_t, cache)
-        # the transformer updates its k/v in place, the recurrence returns
-        # new state rows
+        # the transformer and the hybrid update their k/v in place, the
+        # recurrences return new state rows
         self.cache = {k: new[k] for k in self.cache}
         self._pos += valid
         self.metrics.decode_steps += 1

@@ -11,8 +11,9 @@ divergence, protect/unprotect of the sessions an engine slot decodes into,
 and the ``begin_append``/``commit_append`` reservation protocol of the
 paged-native decode step.
 
-``StateCachePool`` keeps the ssm family's sessions instead: one O(1)
-decode-state row each (conv window and recurrent state), no pages.
+``StateCachePool`` keeps the ssm and hybrid families' sessions instead:
+one decode-state row each (conv window and recurrent state, and for the
+hybrid the sliding-window K/V rings of its attention layers), no pages.
 
 PyTorch tensors are mutable, so every page write (copy-on-write, import,
 ``write_session``, the decode step's scatter) updates the pool tensors in
@@ -676,9 +677,11 @@ class PagedKVPool:
 
 
 class StateCachePool:
-    """O(1)-state cache pool for SSM sessions: each session's conv window
-    and recurrent state (one batch-1 cache row) and the tokens it stands
-    for.  Migration costs the same whatever the session's length.
+    """State cache pool for SSM and hybrid sessions: each session's conv
+    window and recurrent state (one batch-1 cache row; the hybrid's row
+    also holds the K/V rings of its local-attention layers, bounded by the
+    window) and the tokens it stands for.  Migration costs the same
+    whatever the session's length.
 
     The pool keeps what it is given: the engine stores copies, never views
     of its live slot cache.  ``import_session`` copies the payload's

@@ -5,12 +5,24 @@ padding, ragged positions, partial tail pages, chunk lengths and sequence
 lengths that are no multiple of any tile, a windowed and a non-causal
 attention, ring caches whose positions wrap past the cache length
 (twice), with windows below, at and above it, expert-FFN row counts and
-widths that are no multiple of the kernel's tiles, and SSD sequences with a
-ragged last chunk, a chunk longer than the sequence and an initial state.
-Inputs come from numpy seeds.
+widths that are no multiple of the kernel's tiles, SSD sequences with a
+ragged last chunk, a chunk longer than the sequence and an initial state,
+and RG-LRU scans over sequences and widths that are no multiple of any
+block, with and without an initial state.  Inputs come from numpy seeds.
 """
 
 import numpy as np
+import torch
+
+# In a CPU process where JAX has already run a computation, the first MKL
+# vector-math call (torch.exp, torch.sin, ...) on each intra-op thread
+# sometimes comes out inaccurate, up to ~1.5e-4 relative; every later call,
+# of any such function, is exact, and nothing of the kind happens with one
+# thread, without JAX, or when such a call came first.  One float32
+# torch.exp spread over every thread (1M elements: the vector-math kernels
+# hand out chunks of 2048) takes that first call here, when the test
+# modules are imported, so the tests' float32 tolerances hold in any order.
+torch.exp(torch.zeros(1 << 20))
 
 
 def paged_case(seed, B, T, Hkv, n_rep, D, P, n_pages, maxp):
@@ -122,4 +134,27 @@ SSD_CASES = [
     (3, 1, 193, 2, 32, 32, 64, False),
     (4, 2, 40, 2, 16, 16, 64, True),
     (5, 2, 100, 3, 32, 64, 32, True),
+]
+
+
+def rglru_case(seed, B, S, W, init=False):
+    """The scales of the reference's RG-LRU sweep: decays a uniform on
+    (0.7, 0.999), inputs b * 0.1, and, with ``init``, a unit-normal
+    initial state [B,W]; all float32."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.7, 0.999, (B, S, W)).astype(np.float32)
+    b = (rng.standard_normal((B, S, W)) * 0.1).astype(np.float32)
+    h0 = (rng.standard_normal((B, W)).astype(np.float32) if init else None)
+    return a, b, h0
+
+
+RGLRU_CASES = [
+    # seed, B, S, W, init: the reference's sweep (tests/test_kernels.py),
+    # with and without h0, a ragged sequence and width, and a single step
+    (0, 1, 64, 32, False),
+    (1, 2, 300, 96, True),
+    (2, 3, 128, 256, False),
+    (3, 3, 128, 256, True),
+    (4, 2, 37, 40, True),
+    (5, 2, 1, 8, True),
 ]

@@ -13,16 +13,18 @@ rows are launched with them.  The SSD chunk scan is held relative to the
 largest reference value: y within 1e-2 in bf16 (the plain version also
 rounds the scores, the decayed score matrix and dt to bf16, the kernel
 only y) and 1e-3 in float32, against the plain version and against the
-token-by-token recurrence; its float32 final state within 1e-3.
+token-by-token recurrence; its float32 final state within 1e-3.  The
+RG-LRU scan multiplies and adds in its plain version's order, separately
+rounded, so it must equal it bit for bit (and so within 1e-5).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (FLASH_CASES, MOE_CASES, PAGED_CASES, RING_CASES,
-                          SSD_CASES, moe_case, paged_case, ring_case,
-                          ssd_case)
+from _torch_cases import (FLASH_CASES, MOE_CASES, PAGED_CASES, RGLRU_CASES,
+                          RING_CASES, SSD_CASES, moe_case, paged_case,
+                          rglru_case, ring_case, ssd_case)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_bhsd_ref
 from repro_torch.kernels.moe_ffn import ops as moe_ops
@@ -30,6 +32,8 @@ from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ref import (decode_ring_ref,
                                                      paged_decode_chunk_ref)
+from repro_torch.kernels.rglru_scan import ops as scan_ops
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_sequential
 
@@ -39,9 +43,19 @@ CARD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 # P=64, the engine's default pool of 272 pages, 16 table entries
 MAIN_PAGED = (9, 8, 8, 8, 2, 128, 64, 272, 16)
 MAIN_FLASH = (9, 16, 500, 500, 128, True, None)
+# recurrentgemma-9b's prefill attention (16 heads of 256, window 2048): the
+# 512-token bucket of an admission, a 128 window over it, and a ragged one
+MAIN_FLASH_256 = [(12, 16, 512, 512, 256, True, 2048),
+                  (13, 16, 512, 512, 256, True, 128),
+                  (14, 3, 77, 77, 256, True, 9)]
 # decode_step's ring at full width: B=8, a 1024-slot cache, 8 kv heads of
 # 2 queries, D=128; no window, and a 256-slot ring with a 256 window
 MAIN_RING = [(9, 8, 1024, 8, 2, 128, None), (10, 8, 256, 8, 2, 128, 256)]
+# recurrentgemma-9b's decode_step: one kv head of 16 queries, D=256, window
+# 2048, over a 1024-slot cache and the 2048-slot ring; ring_case puts pos in
+# [1, 2C), so most rows have wrapped their cache
+MAIN_RING_256 = [(15, 8, 1024, 1, 16, 256, 2048),
+                 (16, 8, 2048, 1, 16, 256, 2048)]
 # the dropless MoE of full-width granite-moe-1b-a400m (E=32, D=1024, F=512)
 # over an engine step's 64 rows and over 37 (a row-tile tail); and a width
 # whose D (40) and F (24) are no multiple of the kernel's sub-tiles
@@ -54,6 +68,10 @@ MAIN_SSD = [(9, 1, 512, 24, 64, 128, 256, False),
             (10, 2, 300, 24, 64, 128, 256, True),
             (11, 2, 100, 4, 32, 32, 16, True)]
 SSD_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+# recurrentgemma-9b's RG-LRU scans (W=4096): an admission's 512-token
+# bucket with and without a carried state, and the model API's batch of 8
+MAIN_RGLRU = [(17, 1, 512, 4096, False), (18, 1, 512, 4096, True),
+              (19, 8, 64, 4096, True)]
 
 
 @pytest.fixture
@@ -83,7 +101,8 @@ def test_paged_chunk_kernel_matches_plain(cuda_device, dtype, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", FLASH_CASES + [MAIN_FLASH])
+@pytest.mark.parametrize("case", FLASH_CASES + [MAIN_FLASH]
+                         + MAIN_FLASH_256)
 def test_flash_kernel_matches_plain(cuda_device, dtype, case):
     seed, BH, Sq, Skv, D, causal, window = case
     rng = np.random.default_rng(seed)
@@ -100,7 +119,7 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", RING_CASES + MAIN_RING)
+@pytest.mark.parametrize("case", RING_CASES + MAIN_RING + MAIN_RING_256)
 def test_ring_kernel_matches_plain(cuda_device, dtype, case):
     seed, B, C, Hkv, n_rep, D, window = case
     arrs = ring_case(seed, B, C, Hkv, n_rep, D)
@@ -115,6 +134,38 @@ def test_ring_kernel_matches_plain(cuda_device, dtype, case):
     want = decode_ring_ref(q, ck, cv, pos, scale=D ** -0.5, n_rep=n_rep,
                            window=window)
     torch.testing.assert_close(got.float(), want.float(), **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RGLRU_CASES + MAIN_RGLRU)
+def test_rglru_scan_kernel_matches_plain(cuda_device, case):
+    seed, B, S, W, init = case
+    a, b, h0 = (None if x is None else torch.from_numpy(x).to(cuda_device)
+                for x in rglru_case(seed, B, S, W, init))
+    n = scan_ops.rglru_scan.launches
+    y, last = scan_ops.rglru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert scan_ops.rglru_scan.launches == n + 1
+    want_y, want_last = rglru_scan_ref(a, b, h0)
+    assert torch.equal(y, want_y) and torch.equal(last, want_last)
+    torch.testing.assert_close(y, want_y, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_rglru_scan_kernel_edges(cuda_device):
+    """No steps gives h0 (or zeros) back; a layout the kernel does not
+    take is refused on the card too."""
+    a, b, h0 = (torch.from_numpy(x).to(cuda_device)
+                for x in rglru_case(20, 2, 3, 40, True))
+    y, last = scan_ops.rglru_scan(a[:, :0].contiguous(),
+                                  b[:, :0].contiguous(), h0)
+    torch.cuda.synchronize()
+    assert y.shape == (2, 0, 40) and torch.equal(last, h0)
+    _, last = scan_ops.rglru_scan(a[:, :0].contiguous(),
+                                  b[:, :0].contiguous())
+    assert not bool(last.any())
+    with pytest.raises(ValueError, match="contiguous float32"):
+        scan_ops.rglru_scan(a.bfloat16(), b.bfloat16())
 
 
 def _moe_inputs(case, device, dtype, expanded):
@@ -217,7 +268,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="int32"):
         paged_ops.paged_decode_chunk(q.float(), kp.float(), kp.float(),
                                      pt.long(), pos, scale=1.0, n_rep=2)
-    x = torch.zeros(2, 8, 256, device=cuda_device)
+    x = torch.zeros(2, 8, 264, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         flash_ops.flash_attention_bhsd(x, x, x)
     ring = dict(window=None, scale=1.0, n_rep=2)

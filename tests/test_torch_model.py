@@ -47,7 +47,7 @@ def test_configs_equal_the_reference_field_for_field(smoke):
     assert dataclasses.asdict(get_t(ARCH)) == dataclasses.asdict(get_j(ARCH))
     assert get_t(ARCH).torch_dtype == torch.bfloat16
     with pytest.raises(KeyError, match="ROADMAP"):
-        tcfgs.get_config("recurrentgemma-9b")
+        tcfgs.get_config("stablelm-1.6b")
 
 
 def test_params_from_numpy_keeps_tree_and_bf16_exactly():

@@ -314,7 +314,7 @@ def test_build_model_takes_moe_and_refuses_the_rest():
     assert build_model(cfg).cfg.family == "moe"
     for bad, item in ((dict(norm_type="layer"), "A11"),
                       (dict(mlp_type="gelu"), "A11"),
-                      (dict(family="hybrid"), "A13")):
+                      (dict(family="vlm"), "A12")):
         with pytest.raises(NotImplementedError, match=item):
             build_model(cfg.replace(**bad))
 
