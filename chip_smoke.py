@@ -96,7 +96,8 @@ SRC = ROOT / "src"
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 flop/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
-# float32 outside the tensor cores (the RG-LRU scan's multiply-adds)
+# float32 outside the tensor cores: a bound divides the operations by the
+# peak of their own type, and the RG-LRU scan multiplies and adds in float32
 F32_FLOP_PER_S = 67e12
 # kernel vs plain version in bf16: both round the output to bf16 once (and
 # the flash kernel rounds its probabilities to bf16 before P.V, the plain
@@ -138,31 +139,67 @@ def nvidia_smi() -> str:
 # ------------------------------------------------------------------ timing
 class Timer:
     """Median device time of one call, with the 50 MB L2 flushed before
-    each launch (the serving path meets every layer's pages cold).  A spin
-    kernel of ~0.5 ms queued after the flush keeps the card busy while the
-    host runs the call's Python wrapper, so the timed span holds the
-    call's device work and not the host's launch overhead."""
+    each launch (the serving path meets every layer's pages cold).
 
-    SPIN_CYCLES = 1_000_000
+    A spin kernel (``torch.cuda._sleep``, PyTorch's own, which its stream
+    tests use) is queued after the flush, so the card is busy while the
+    host runs the call's Python and the timed span holds the call's device
+    work, not the host's launch overhead.  The spin is sized from the
+    call's host time in the warm-up.  Each timed call checks that the spin
+    was still running when the call returned (its start event not yet
+    reached); if it was not, the card may have waited on the host inside
+    the span, so the spin grows fourfold and the call is timed again.  A
+    call that outruns the longest spin (one that synchronises inside, or
+    whose host time is longer) is printed as a reading that includes host
+    time, and counted in ``host_bound``."""
+
+    MIN_SPIN_MS, MAX_SPIN_MS = 0.5, 64.0
 
     def __init__(self, torch):
         self.torch = torch
         self.flush_buf = torch.empty(64 << 20, dtype=torch.uint8,
                                      device="cuda")
+        self.host_bound = 0
+        # the spin's clock cycles per ms on this card, at its clock now
+        cycles = 1 << 22
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        s.record()
+        torch.cuda._sleep(cycles)
+        e.record()
+        torch.cuda.synchronize()
+        self.cycles_per_ms = cycles / s.elapsed_time(e)
 
     def ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
         torch = self.torch
         for _ in range(warmup):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             fn()
-        starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-        ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-        for s, e in zip(starts, ends):
-            self.flush_buf.zero_()
-            torch.cuda._sleep(self.SPIN_CYCLES)
-            s.record()
-            fn()
-            e.record()
-        torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+        spin = min(max(2 * host_ms, self.MIN_SPIN_MS), self.MAX_SPIN_MS)
+        while True:
+            starts = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(iters)]
+            ends = [torch.cuda.Event(enable_timing=True)
+                    for _ in range(iters)]
+            outran = 0
+            for s, e in zip(starts, ends):
+                self.flush_buf.zero_()
+                torch.cuda._sleep(int(spin * self.cycles_per_ms))
+                s.record()
+                fn()
+                outran += s.query()
+                e.record()
+            torch.cuda.synchronize()
+            if not outran or spin >= self.MAX_SPIN_MS:
+                break
+            spin = min(4 * spin, self.MAX_SPIN_MS)
+        if outran:
+            self.host_bound += 1
+            print(f"[timer] the host outran a {spin:.1f} ms spin in "
+                  f"{outran} of {iters} calls (host {host_ms:.2f} ms in the "
+                  f"warm-up): the next reading includes host time")
         return float(np.median([s.elapsed_time(e)
                                 for s, e in zip(starts, ends)]))
 
@@ -330,16 +367,61 @@ def phase_kernels(torch, timer, paged_ops, paged_ref, flash_ops, flash_ref,
         replaces="src/repro/kernels/paged_attention/paged_attention.py:260",
         max_abs_err=err, **timings[8])
 
-    # --- flash_attention_bhsd: S in {17, 128, 500} causal, one windowed
-    err = 0.0
-    g = torch.Generator(device="cuda").manual_seed(7)
+    # --- flash_attention_bhsd: S in {17, 128, 500} causal, one windowed;
+    # timed at the monolithic prefill of a 257..512-token prompt: one
+    # sequence, bucket 512, 16 heads
+    err, timed = flash_rows(
+        torch, timer, flash_ops, flash_ref, "kernels", H, D, seed=7,
+        cases=((17, None, False), (128, None, False), (500, None, False),
+               (500, 128, False), (512, None, True)))
+    rows["flash_attention_bhsd"] = dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:87",
+        max_abs_err=err, **timed[512, None])
 
-    def qkv(S, BH=H):
-        return [torch.randn((BH, S, D), generator=g, device="cuda").to(
-            torch.bfloat16) for _ in range(3)]
+    # --- decode_ring (decode_attention_kernel): decode_step's shapes, a
+    # 1024-slot cache without a window (ragged pos, some past C), a 256-slot
+    # ring with a 256 window whose positions wrap it up to 7 times, and a
+    # 1024-slot ring with a 256 window; timed at the decode phase's shapes:
+    # a 1024-slot cache, contexts of its 64 steps after a 256-token prompt,
+    # and once over a full cache
+    B = decode_batch
+    rng = np.random.default_rng(11)
+    cases = []
+    for C, window, hi in ((1024, None, 1400), (256, 256, 2000),
+                          (1024, 256, 2000)):
+        pos = rng.integers(0, hi, B)
+        pos[:2] = (C - 1, C + 5)        # the last slot, and past it
+        cases.append((None, C, window, pos))
+    for label, lo, hi in (("decode", decode_ctx, decode_ctx + 64),
+                          ("full", 960, 1024)):
+        cases.append((label, 1024, None, rng.integers(lo, hi, B)))
+    err, timed = ring_rows(torch, timer, paged_ops, paged_ref, "kernels", H,
+                           Hkv, D, seed=11, cases=cases)
+    rows["decode_ring"] = dict(
+        source="src/repro_torch/csrc/decode_ring.cu",
+        replaces="src/repro/kernels/paged_attention/paged_attention.py:81",
+        max_abs_err=err, **timed["decode"])
+    rows["moe_ffn"] = moe_kernel_rows(torch, timer, moe_ops, moe_ref, moe_cfg)
+    rows["ssd_chunk_scan"] = ssd_kernel_rows(torch, timer, ssd_ops, ssd_ref,
+                                             ssm_cfg)
+    return rows
 
-    for S, window in ((17, None), (128, None), (500, None), (500, 128)):
-        q, k, v = qkv(S)
+
+def flash_rows(torch, timer, flash_ops, flash_ref, tag, H, D, seed,
+               cases):
+    """The flash kernel at BH=H, head dim D, bf16, causal: at each (S,
+    window, timed) of ``cases`` held against its plain version, and where
+    ``timed`` timed beside it and SDPA (``is_causal`` without a window, a
+    boolean mask with one).  Returns the largest difference and the
+    timings by (S, window)."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    scale = D ** -0.5
+    err, timings = 0.0, {}
+    for S, window, timed in cases:
+        q, k, v = (torch.randn((H, S, D), generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(3))
         got = flash_ops.flash_attention_bhsd(q, k, v, causal=True,
                                              window=window, scale=scale)
         torch.cuda.synchronize()
@@ -347,57 +429,56 @@ def phase_kernels(torch, timer, paged_ops, paged_ref, flash_ops, flash_ref,
                                                   window=window, scale=scale)
         e = (got.float() - want.float()).abs().max().item()
         ok = torch.allclose(got.float(), want.float(), **KERNEL_TOL)
-        print(f"[kernels] flash_attention_bhsd S={S} window={window} "
-              f"BH={H} D={D} max_abs_err={e:.3e} tol={KERNEL_TOL} ok={ok}")
+        print(f"[{tag}] flash_attention_bhsd S={S} window={window} BH={H} "
+              f"D={D} max_abs_err={e:.3e} tol={KERNEL_TOL} ok={ok}")
         check(ok and bool(torch.isfinite(got).all()),
               f"flash_attention_bhsd disagrees with its plain version "
-              f"(S={S}, window={window})")
+              f"(S={S}, window={window}, D={D})")
         err = max(err, e)
+        if not timed:
+            continue
+        n_bytes, flops = flash_cost(H, S, D, window)
+        bound, by = bound_ms(n_bytes, flops)
+        q4, k4, v4 = (x[None] for x in (q, k, v))
+        if window is None:
+            sdpa = dict(is_causal=True)
+        else:
+            i = torch.arange(S, device="cuda")
+            sdpa = dict(attn_mask=(i[None, :] <= i[:, None])
+                        & (i[None, :] > i[:, None] - window))
+        t = {"ms": timer.ms(lambda: flash_ops.flash_attention_bhsd(
+                 q, k, v, causal=True, window=window, scale=scale)),
+             "plain_ms": timer.ms(lambda: flash_ref.flash_attention_bhsd_ref(
+                 q, k, v, causal=True, window=window, scale=scale)),
+             "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                 q4, k4, v4, scale=scale, **sdpa)),
+             "bound_ms": bound, "bound_by": by}
+        timings[S, window] = t
+        print(f"[{tag}] flash_attention_bhsd timed BH={H} S={S} D={D} "
+              f"window={window}: ms={t['ms']:.4f} plain_ms="
+              f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} (SDPA) "
+              f"bound_ms={bound:.5f} ({by}; {n_bytes} B, {flops} flop)")
+    return err, timings
 
-    # timed at the monolithic prefill of a 257..512-token prompt: one
-    # sequence, bucket 512, 16 heads
-    S = 512
-    q, k, v = qkv(S)
-    n_bytes, flops = flash_cost(H, S, D, None)
-    bound, by = bound_ms(n_bytes, flops)
-    q4, k4, v4 = (x[None] for x in (q, k, v))
-    t = {"ms": timer.ms(lambda: flash_ops.flash_attention_bhsd(
-             q, k, v, causal=True, scale=scale)),
-         "plain_ms": timer.ms(lambda: flash_ref.flash_attention_bhsd_ref(
-             q, k, v, causal=True, scale=scale)),
-         "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
-             q4, k4, v4, is_causal=True, scale=scale)),
-         "bound_ms": bound, "bound_by": by}
-    print(f"[kernels] flash_attention_bhsd timed BH={H} S={S} D={D} causal: "
-          f"ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms="
-          f"{t['library_ms']:.4f} bound_ms={bound:.5f} ({by}; {n_bytes} B, "
-          f"{flops} flop)")
-    rows["flash_attention_bhsd"] = dict(
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/flash_attention.py:87",
-        max_abs_err=err, **t)
 
-    # --- decode_ring (decode_attention_kernel): decode_step's shapes, a
-    # 1024-slot cache without a window (ragged pos, some past C), a 256-slot
-    # ring with a 256 window whose positions wrap it up to 7 times, and a
-    # 1024-slot ring with a 256 window
-    B = decode_batch
-    g = torch.Generator(device="cuda").manual_seed(11)
-    rng = np.random.default_rng(11)
-
-    def ring_inputs(C, pos):
+def ring_rows(torch, timer, paged_ops, paged_ref, tag, H, Hkv, D, seed,
+              cases):
+    """The ring kernel (``decode_attention_kernel``) on bf16 q [B,1,H,D]
+    and caches [B,C,Hkv,D]: at each (label, C, window, pos) of ``cases``
+    held against its plain version, and where ``label`` is not None timed
+    beside it and SDPA with a boolean mask over the GQA-repeated cache.
+    Returns the largest difference and the timings by label."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n_rep, scale = H // Hkv, D ** -0.5
+    err, timings = 0.0, {}
+    for label, C, window, pos in cases:
+        B = len(pos)
         q = torch.randn((B, 1, H, D), generator=g, device="cuda")
         ck, cv = (torch.randn((B, C, Hkv, D), generator=g, device="cuda")
                   for _ in range(2))
-        return ([x.to(torch.bfloat16) for x in (q, ck, cv)]
-                + [torch.from_numpy(pos.astype(np.int32)).cuda()])
-
-    err = 0.0
-    for C, window, hi in ((1024, None, 1400), (256, 256, 2000),
-                          (1024, 256, 2000)):
-        pos = rng.integers(0, hi, B)
-        pos[:2] = (C - 1, C + 5)        # the last slot, and past it
-        q, ck, cv, pos_t = ring_inputs(C, pos)
+        q, ck, cv = (x.to(torch.bfloat16) for x in (q, ck, cv))
+        pos_t = torch.from_numpy(pos.astype(np.int32)).cuda()
         got = paged_ops.decode_attention_kernel(q, ck, cv, pos_t,
                                                 window=window, scale=scale,
                                                 n_rep=n_rep)
@@ -406,53 +487,40 @@ def phase_kernels(torch, timer, paged_ops, paged_ref, flash_ops, flash_ref,
                                          n_rep=n_rep, window=window)
         e = (got.float() - want.float()).abs().max().item()
         ok = torch.allclose(got.float(), want.float(), **KERNEL_TOL)
-        print(f"[kernels] decode_ring B={B} C={C} window={window} pos="
-              f"{pos.min()}..{pos.max()} max_abs_err={e:.3e} "
-              f"tol={KERNEL_TOL} ok={ok}")
+        wrapped = " (wrapped)" if int(pos.min()) >= C else ""
+        print(f"[{tag}] decode_ring B={B} C={C} H={H} Hkv={Hkv} D={D} "
+              f"window={window} pos={pos.min()}..{pos.max()}{wrapped} "
+              f"max_abs_err={e:.3e} tol={KERNEL_TOL} ok={ok}")
         check(ok and bool(torch.isfinite(got).all()),
               f"decode_ring disagrees with its plain version (C={C}, "
-              f"window={window})")
+              f"window={window}, D={D})")
         err = max(err, e)
-
-    # timed at the decode phase's shapes: a 1024-slot cache, contexts of
-    # its 64 steps after a 256-token prompt; and once over a full cache
-    timings = {}
-    for label, lo, hi in (("decode", decode_ctx, decode_ctx + 64),
-                          ("full", 960, 1024)):
-        C = 1024
-        q, ck, cv, pos_t = ring_inputs(C, rng.integers(lo, hi, B))
-        visible = paged_ref.ring_visible(pos_t, C, None)
+        if label is None:
+            continue
+        visible = paged_ref.ring_visible(pos_t, C, window)
         n_bytes, flops = ring_cost(visible, H, Hkv, D)
         bound, by = bound_ms(n_bytes, flops)
         mask = visible[:, None, None, :]
 
         def library():
-            # SDPA with a boolean mask over the GQA-repeated cache
             kr = ck.repeat_interleave(n_rep, dim=2).transpose(1, 2)
             vr = cv.repeat_interleave(n_rep, dim=2).transpose(1, 2)
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), kr, vr, attn_mask=mask, scale=scale)
 
         t = {"ms": timer.ms(lambda: paged_ops.decode_attention_kernel(
-                 q, ck, cv, pos_t, window=None, scale=scale, n_rep=n_rep)),
+                 q, ck, cv, pos_t, window=window, scale=scale, n_rep=n_rep)),
              "plain_ms": timer.ms(lambda: paged_ref.decode_ring_ref(
-                 q, ck, cv, pos_t, scale=scale, n_rep=n_rep)),
+                 q, ck, cv, pos_t, scale=scale, n_rep=n_rep, window=window)),
              "library_ms": timer.ms(library),
              "bound_ms": bound, "bound_by": by}
         timings[label] = t
-        print(f"[kernels] decode_ring timed ({label}) B={B} C={C} H={H} "
-              f"Hkv={Hkv} D={D} pos={pos_t.min().item()}.."
-              f"{pos_t.max().item()}: ms={t['ms']:.4f} plain_ms="
+        print(f"[{tag}] decode_ring timed ({label}) B={B} C={C} H={H} "
+              f"Hkv={Hkv} D={D} window={window}: ms={t['ms']:.4f} plain_ms="
               f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
-              f"bound_ms={bound:.5f} ({by}; {n_bytes} B, {flops} flop)")
-    rows["decode_ring"] = dict(
-        source="src/repro_torch/csrc/decode_ring.cu",
-        replaces="src/repro/kernels/paged_attention/paged_attention.py:81",
-        max_abs_err=err, **timings["decode"])
-    rows["moe_ffn"] = moe_kernel_rows(torch, timer, moe_ops, moe_ref, moe_cfg)
-    rows["ssd_chunk_scan"] = ssd_kernel_rows(torch, timer, ssd_ops, ssd_ref,
-                                             ssm_cfg)
-    return rows
+              f"(repeat + SDPA) bound_ms={bound:.5f} ({by}; {n_bytes} B, "
+              f"{flops} flop; {B * Hkv} blocks)")
+    return err, timings
 
 
 def moe_kernel_rows(torch, timer, moe_ops, moe_ref, cfg):
@@ -1495,10 +1563,8 @@ def hybrid_kernel_rows(torch, timer, scan_ops, scan_ref, flash_ops,
     of 16 queries, D=256, window 2048, over 1024- and 2048-slot caches at
     positions past the window (the ring has wrapped).  Returns the scan's
     row of the kernel table."""
-    F = torch.nn.functional
     W, H, Hkv = cfg.rglru_width, cfg.n_heads, cfg.n_kv_heads
     D, win = cfg.head_dim_, cfg.sliding_window
-    n_rep, scale = H // Hkv, cfg.head_dim_ ** -0.5
     g = torch.Generator(device="cuda").manual_seed(19)
 
     def randn(*shape):
@@ -1537,75 +1603,13 @@ def hybrid_kernel_rows(torch, timer, scan_ops, scan_ref, flash_ops,
               f"{bound:.5f} ({by}; {n_bytes} B, {flops} flop; "
               f"{B * W} threads)")
 
-    S = 512
-    for window in (win, 128):
-        q, k, v = (randn(H, S, D).to(torch.bfloat16) for _ in range(3))
-        got = flash_ops.flash_attention_bhsd(q, k, v, causal=True,
-                                             window=window, scale=scale)
-        torch.cuda.synchronize()
-        want = flash_ref.flash_attention_bhsd_ref(q, k, v, causal=True,
-                                                  window=window, scale=scale)
-        e = (got.float() - want.float()).abs().max().item()
-        ok = torch.allclose(got.float(), want.float(), **KERNEL_TOL)
-        check(ok and bool(torch.isfinite(got).all()),
-              f"flash_attention_bhsd disagrees with its plain version at "
-              f"D={D} (window {window})")
-        n_bytes, flops = flash_cost(H, S, D, window)
-        bound, by = bound_ms(n_bytes, flops)
-        i = torch.arange(S, device="cuda")
-        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
-        q4, k4, v4 = (x[None] for x in (q, k, v))
-        t = {"ms": timer.ms(lambda: flash_ops.flash_attention_bhsd(
-                 q, k, v, causal=True, window=window, scale=scale)),
-             "plain_ms": timer.ms(lambda: flash_ref.flash_attention_bhsd_ref(
-                 q, k, v, causal=True, window=window, scale=scale)),
-             "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
-                 q4, k4, v4, attn_mask=mask, scale=scale))}
-        print(f"[hybrid] flash_attention_bhsd D={D} BH={H} S={S} window="
-              f"{window} bf16: max_abs_err={e:.3e} tol={KERNEL_TOL} ok={ok};"
-              f" timed ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
-              f"library_ms={t['library_ms']:.4f} (SDPA, boolean mask) "
-              f"bound_ms={bound:.5f} ({by}; {n_bytes} B, {flops} flop)")
-
-    B = 8
+    flash_rows(torch, timer, flash_ops, flash_ref, "hybrid", H, D, seed=19,
+               cases=((512, win, True), (512, 128, True)))
     rng = np.random.default_rng(19)
-    for C, lo, hi in ((1024, 2048, 4096), (2048, 2048, 4096)):
-        pos = torch.from_numpy(rng.integers(lo, hi, B).astype(np.int32)).cuda()
-        q = randn(B, 1, H, D).to(torch.bfloat16)
-        ck, cv = (randn(B, C, Hkv, D).to(torch.bfloat16) for _ in range(2))
-        got = paged_ops.decode_attention_kernel(q, ck, cv, pos, window=win,
-                                                scale=scale, n_rep=n_rep)
-        torch.cuda.synchronize()
-        want = paged_ref.decode_ring_ref(q, ck, cv, pos, scale=scale,
-                                         n_rep=n_rep, window=win)
-        e = (got.float() - want.float()).abs().max().item()
-        ok = torch.allclose(got.float(), want.float(), **KERNEL_TOL)
-        check(ok and bool(torch.isfinite(got).all()),
-              f"decode_ring disagrees with its plain version at D={D}, "
-              f"C={C}")
-        visible = paged_ref.ring_visible(pos, C, win)
-        n_bytes, flops = ring_cost(visible, H, Hkv, D)
-        bound, by = bound_ms(n_bytes, flops)
-        mask = visible[:, None, None, :]
-
-        def library():
-            kr = ck.repeat_interleave(n_rep, dim=2).transpose(1, 2)
-            vr = cv.repeat_interleave(n_rep, dim=2).transpose(1, 2)
-            return F.scaled_dot_product_attention(
-                q.transpose(1, 2), kr, vr, attn_mask=mask, scale=scale)
-
-        t = {"ms": timer.ms(lambda: paged_ops.decode_attention_kernel(
-                 q, ck, cv, pos, window=win, scale=scale, n_rep=n_rep)),
-             "plain_ms": timer.ms(lambda: paged_ref.decode_ring_ref(
-                 q, ck, cv, pos, scale=scale, n_rep=n_rep, window=win)),
-             "library_ms": timer.ms(library)}
-        print(f"[hybrid] decode_ring D={D} B={B} C={C} Hkv={Hkv} n_rep="
-              f"{n_rep} window={win} pos={pos.min().item()}.."
-              f"{pos.max().item()} (wrapped) bf16: max_abs_err={e:.3e} "
-              f"tol={KERNEL_TOL} ok={ok}; timed ms={t['ms']:.4f} plain_ms="
-              f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
-              f"(repeat + SDPA) bound_ms={bound:.5f} ({by}; {n_bytes} B, "
-              f"{flops} flop; {B * Hkv} blocks on 132 SMs)")
+    ring_rows(torch, timer, paged_ops, paged_ref, "hybrid", H, Hkv, D,
+              seed=19, cases=[(f"C={C}", C, win, rng.integers(lo, hi, 8))
+                              for C, lo, hi in ((1024, 2048, 4096),
+                                                (2048, 2048, 4096))])
     return dict(source="src/repro_torch/csrc/rglru_scan.cu",
                 replaces="src/repro/kernels/rglru_scan/rglru_scan.py:50",
                 max_abs_err=err, **timed[1, 512])
@@ -2130,6 +2134,7 @@ def main() -> int:
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    print(f"[timer] {timer.host_bound} readings include host time")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     kernels = [dict(name=name, route="cuda", launches=launches[name], **row)
                for name, row in rows.items()]
