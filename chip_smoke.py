@@ -237,6 +237,30 @@ def paged_inputs(torch, seed, B, T, H, Hkv, D, P, n_pages, maxp, pos_range):
             torch.from_numpy(pos).cuda())
 
 
+def gather_sdpa(torch, q, kp, vp, pt, pos, scale):
+    """The paged chunk's yardstick (never used by the port): the pool's
+    pages gathered densely, GQA expanded, then one SDPA call with the
+    chunk's causal mask over q [B,T,H,D].  Returns a closure."""
+    F = torch.nn.functional
+    B, T, H, D = q.shape
+    _, P, Hkv, _ = kp.shape
+    C = pt.shape[1] * P
+    idx = pt.long().clamp(min=0)
+    qpos = pos.long()[:, None] + torch.arange(T, device="cuda")[None]
+    mask = ((torch.arange(C, device="cuda")[None, None] <= qpos[..., None])
+            & (pt >= 0).repeat_interleave(P, 1)[:, None])[:, None]
+
+    def library():
+        kg = kp[idx].reshape(B, C, Hkv, 1, D).expand(
+            B, C, Hkv, H // Hkv, D).reshape(B, C, H, D)
+        vg = vp[idx].reshape(B, C, Hkv, 1, D).expand(
+            B, C, Hkv, H // Hkv, D).reshape(B, C, H, D)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
+            attn_mask=mask, scale=scale)
+    return library
+
+
 def paged_cost(pt, pos, T, H, Hkv, D, P):
     """Bytes the function must move and flops it must do on these inputs:
     q in, out back, the table and pos, and the K and V of every token a row
@@ -297,7 +321,6 @@ def phase_build(_build):
 def phase_kernels(torch, timer, paged_ops, paged_ref, flash_ops, flash_ref,
                   moe_ops, moe_ref, ssd_ops, ssd_ref, cfg, moe_cfg, ssm_cfg,
                   decode_batch, decode_ctx):
-    F = torch.nn.functional
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     n_rep = H // Hkv
     P, max_seq, max_batch = 64, 1024, 8
@@ -334,22 +357,7 @@ def phase_kernels(torch, timer, paged_ops, paged_ref, flash_ops, flash_ref,
                                           (32, 544))
         n_bytes, flops = paged_cost(pt, pos, T, H, Hkv, D, P)
         bound, by = bound_ms(n_bytes, flops)
-        C = maxp * P
-        idx = pt.long().clamp(min=0)
-        qpos = pos.long()[:, None] + torch.arange(T, device="cuda")[None]
-        mask = ((torch.arange(C, device="cuda")[None, None] <= qpos[..., None])
-                & (pt >= 0).repeat_interleave(P, 1)[:, None])[:, None]
-
-        def library():
-            # gather + SDPA: the paged pool gathered densely, GQA expanded
-            kg = kp[idx].reshape(max_batch, C, Hkv, 1, D).expand(
-                max_batch, C, Hkv, n_rep, D).reshape(max_batch, C, H, D)
-            vg = vp[idx].reshape(max_batch, C, Hkv, 1, D).expand(
-                max_batch, C, Hkv, n_rep, D).reshape(max_batch, C, H, D)
-            return F.scaled_dot_product_attention(
-                q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
-                attn_mask=mask, scale=scale)
-
+        library = gather_sdpa(torch, q, kp, vp, pt, pos, scale)
         t = {"ms": timer.ms(lambda: paged_ops.paged_decode_chunk(
                  q, kp, vp, pt, pos, scale=scale, n_rep=n_rep)),
              "plain_ms": timer.ms(lambda: paged_ref.paged_decode_chunk_ref(
@@ -366,6 +374,8 @@ def phase_kernels(torch, timer, paged_ops, paged_ref, flash_ops, flash_ref,
         source="src/repro_torch/csrc/paged_chunk.cu",
         replaces="src/repro/kernels/paged_attention/paged_attention.py:260",
         max_abs_err=err, **timings[8])
+    rows["paged_decode"] = paged_decode_rows(torch, timer, paged_ops,
+                                             paged_ref, H, Hkv, D)
 
     # --- flash_attention_bhsd: S in {17, 128, 500} causal, one windowed;
     # timed at the monolithic prefill of a 257..512-token prompt: one
@@ -406,6 +416,68 @@ def phase_kernels(torch, timer, paged_ops, paged_ref, flash_ops, flash_ref,
     rows["ssd_chunk_scan"] = ssd_kernel_rows(torch, timer, ssd_ops, ssd_ref,
                                              ssm_cfg)
     return rows
+
+
+def paged_decode_rows(torch, timer, paged_ops, paged_ref, H, Hkv, D):
+    """The one-token split-KV paged decode (B3) at qwen3-0.6b's shapes
+    (pages of 64, tables from the engine's default pool of 272 pages):
+    B=8 at contexts 264..319 (the row in the JSON line) and 975..1020, and
+    one 8192-token sequence, whose 128 pages are 128 splits.  Each is held against its plain version and against the paged
+    chunk kernel at T=1 (pos = lengths - 1, the same function), and timed
+    beside both and beside gather + SDPA.  The bound counts q in, the
+    output, the table and lengths, and the K and V of every visible token
+    once; 4*D flops per (query head, visible token)."""
+    n_rep, P = H // Hkv, 64
+    scale = D ** -0.5
+    err, timed = 0.0, {}
+    for label, B, maxp, n_pages, (lo, hi) in (
+            ("serve", 8, 16, 272, (264, 320)),
+            ("full", 8, 16, 272, (975, 1021)),
+            ("long", 1, 128, 130, (8192, 8193))):
+        q4, kp, vp, pt, pos = paged_inputs(torch, 200 + B + lo, B, 1, H,
+                                           Hkv, D, P, n_pages, maxp,
+                                           (lo - 1, hi - 1))
+        q, lengths = q4[:, 0].contiguous(), pos + 1
+        got = paged_ops.paged_decode(q, kp, vp, pt, lengths, scale=scale,
+                                     n_rep=n_rep)
+        torch.cuda.synchronize()
+        want = paged_ref.paged_decode_ref(q, kp, vp, pt, lengths,
+                                          scale=scale, n_rep=n_rep)
+        chunk = paged_ops.paged_decode_chunk(q4, kp, vp, pt, pos, scale=scale,
+                                             n_rep=n_rep)[:, 0]
+        e = (got.float() - want.float()).abs().max().item()
+        e1 = (got.float() - chunk.float()).abs().max().item()
+        ok = (torch.allclose(got.float(), want.float(), **KERNEL_TOL)
+              and torch.allclose(got.float(), chunk.float(), **KERNEL_TOL)
+              and bool(torch.isfinite(got).all()))
+        print(f"[kernels] paged_decode {label} B={B} len={lo}..{hi - 1} "
+              f"({maxp} page splits per (b, kv head)): "
+              f"max_abs_err={e:.3e} vs plain, {e1:.3e} vs paged_decode_chunk "
+              f"T=1; tol={KERNEL_TOL} ok={ok}")
+        check(ok, f"paged_decode disagrees with its plain version or the "
+                  f"paged chunk kernel ({label})")
+        err = max(err, e)
+        n_bytes, flops = paged_cost(pt, pos, 1, H, Hkv, D, P)
+        bound, by = bound_ms(n_bytes, flops)
+        library = gather_sdpa(torch, q4, kp, vp, pt, pos, scale)
+        t = {"ms": timer.ms(lambda: paged_ops.paged_decode(
+                 q, kp, vp, pt, lengths, scale=scale, n_rep=n_rep)),
+             "plain_ms": timer.ms(lambda: paged_ref.paged_decode_ref(
+                 q, kp, vp, pt, lengths, scale=scale, n_rep=n_rep)),
+             "library_ms": timer.ms(library),
+             "bound_ms": bound, "bound_by": by}
+        b1_ms = timer.ms(lambda: paged_ops.paged_decode_chunk(
+            q4, kp, vp, pt, pos, scale=scale, n_rep=n_rep))
+        timed[label] = t
+        print(f"[kernels] paged_decode timed {label} B={B} H={H} Hkv={Hkv} "
+              f"D={D} P={P}: ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+              f"library_ms={t['library_ms']:.4f} (gather + SDPA) "
+              f"paged_decode_chunk_T1_ms={b1_ms:.4f} bound_ms={bound:.5f} "
+              f"({by}; {n_bytes} B, {flops} flop)")
+    return dict(source="src/repro_torch/csrc/paged_decode.cu",
+                replaces="src/repro/kernels/paged_attention/"
+                         "paged_attention.py:166",
+                max_abs_err=err, **timed["serve"])
 
 
 def flash_rows(torch, timer, flash_ops, flash_ref, tag, H, D, seed,
@@ -1028,6 +1100,382 @@ def phase_dense(torch, rt, cfg, model, params, counters, paged_tokens):
           f"plane's tokens (bf16); launches {launches}")
     del engine
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ phase nalar
+def http_chat(port, payload, timeout=300):
+    """One chat completion over TCP (urllib), as an OpenAI client sends it.
+    Returns the answer's text, its ``usage`` (None when streamed), the
+    seconds to the first content event (None when not streamed) and the
+    number of content events."""
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/chat/completions",
+        data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        if not payload.get("stream"):
+            body = json.loads(resp.read())
+            return dict(text=body["choices"][0]["message"]["content"],
+                        usage=body["usage"], ttft=None, events=1)
+        deltas, last, ttft = [], None, None
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            data = line[len("data: "):]
+            if data == "[DONE]":
+                break
+            last = json.loads(data)
+            check(last["object"] != "error", f"stream failed: {last}")
+            text = last["choices"][0]["delta"].get("content")
+            if text:
+                if ttft is None:
+                    ttft = time.perf_counter() - t0
+                deltas.append(text)
+    check(last is not None and last["choices"][0]["finish_reason"] == "stop",
+          f"stream ended without a stop event: {last}")
+    return dict(text="".join(deltas), usage=None, ttft=ttft,
+                events=len(deltas))
+
+
+def http_wave(port, calls):
+    """Send every (name, payload) of ``calls`` at once, one client thread
+    each; returns {name: http_chat result}."""
+    import threading
+    out = {}
+
+    def go(name, payload):
+        try:
+            out[name] = http_chat(port, payload)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            out[name] = e
+    threads = [threading.Thread(target=go, args=c) for c in calls]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "an HTTP client hung")
+    bad = {k: v for k, v in out.items() if isinstance(v, BaseException)}
+    check(not bad, f"HTTP requests failed: {bad}")
+    return out
+
+
+def nalar_trace():
+    """The serve phase's trace shape as chat requests (``user`` is the Nalar
+    session): wave 1 opens 4 agent sessions on a shared system prompt of
+    128 tokens ("system:" and 127 words) and sends 4 single-turn users, two
+    of them on the system prompt; wave 2 sends each agent's second turn
+    (its history rides the session) and the 4 user prompts again as 4 new
+    users.  Half of the 16 requests stream: agents 0-1 in wave 1, agents
+    2-3 and the repeated prompts in wave 2.  Returns the two waves of
+    (name, messages, stream)."""
+    rng = np.random.default_rng(0)
+
+    def words(lo, hi):
+        n = int(rng.integers(lo, hi + 1))
+        return " ".join(f"w{int(x)}" for x in rng.integers(0, 1 << 30, n))
+
+    sys_msg = {"role": "system",
+               "content": " ".join(f"s{i}" for i in range(127))}
+
+    def msgs(text, system):
+        return ([sys_msg] if system else []) + [{"role": "user",
+                                                 "content": text}]
+    users = [msgs(words(32, 512), False) for _ in range(2)]
+    users += [msgs(words(32, 384), True) for _ in range(2)]
+    wave1 = [(f"agent{i}", msgs(words(32, 384), True), i < 2)
+             for i in range(4)]
+    wave1 += [(f"user{i}", m, False) for i, m in enumerate(users)]
+    wave2 = [(f"agent{i}", msgs(words(32, 96), False), i >= 2)
+             for i in range(4)]
+    wave2 += [(f"user{i + 4}", m, True) for i, m in enumerate(users)]
+    return [wave1, wave2]
+
+
+def nalar_b3_over_pool(torch, rtm, paged_ops, paged_ref, dtype_name):
+    """B3 over the served pool: for each replica, one call over every
+    session resident in its pool (the pool's own page tables and token
+    counts) at layer 0 and the last layer, held against its plain version
+    and the paged chunk kernel at T=1 on the same pages.  Returns the
+    number of sessions read."""
+    pool = rtm.engine_backends["llm"]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    seen = 0
+    for iid in pool.instance_ids:
+        eng = pool.bridge_of(iid).engine
+        kv = eng.pool
+        sids = [s for s in rtm.kv_registry.instance_sessions(iid)
+                if kv.session(s) is not None and kv.session(s).tokens > 0]
+        check(sids, f"{iid}: no resident session")
+        maxp = kv.pages_needed(eng.max_seq)
+        pt = torch.from_numpy(np.stack([kv.page_table(s, maxp)
+                                        for s in sids])).cuda()
+        lengths = torch.tensor([kv.session(s).tokens for s in sids],
+                               dtype=torch.int32, device="cuda")
+        cfg = eng.cfg
+        n_rep = cfg.n_heads // cfg.n_kv_heads
+        scale = cfg.head_dim_ ** -0.5
+        q = torch.randn(len(sids), cfg.n_heads, cfg.head_dim_, generator=g,
+                        device="cuda").to(kv.k.dtype)
+        for layer in (0, cfg.n_layers - 1):
+            kp, vp = kv.k[layer], kv.v[layer]
+            got = paged_ops.paged_decode(q, kp, vp, pt, lengths, scale=scale,
+                                         n_rep=n_rep)
+            want = paged_ref.paged_decode_ref(q, kp, vp, pt, lengths,
+                                              scale=scale, n_rep=n_rep)
+            b1 = paged_ops.paged_decode_chunk(q[:, None].contiguous(), kp, vp,
+                                              pt, lengths - 1, scale=scale,
+                                              n_rep=n_rep)[:, 0]
+            e = (got.float() - want.float()).abs().max().item()
+            e1 = (got.float() - b1.float()).abs().max().item()
+            ok = (torch.allclose(got.float(), want.float(), **KERNEL_TOL)
+                  and torch.allclose(got.float(), b1.float(), **KERNEL_TOL)
+                  and bool(torch.isfinite(got).all()))
+            print(f"[nalar] {dtype_name} B3 over {iid}'s pool, layer "
+                  f"{layer}: {len(sids)} sessions of "
+                  f"{lengths.min().item()}..{lengths.max().item()} tokens; "
+                  f"max_abs_err {e:.3e} vs plain, {e1:.3e} vs "
+                  f"paged_decode_chunk T=1 (tol {KERNEL_TOL}) ok={ok}")
+            check(ok, f"B3 over the served pages of {iid} (layer {layer}) "
+                      f"disagrees")
+        seen += len(sids)
+    return seen
+
+
+def profiled(torch, fn):
+    """Run ``fn`` under ``torch.profiler`` (host and device activity, as
+    :func:`profile_window`); returns (device busy ms, host wall ms) of the
+    window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    return busy_ms, wall_ms
+
+
+def nalar_run(torch, rt, model, params, dtype_name, paged_ops, paged_ref,
+              profile):
+    """One run of the Nalar serving path over HTTP in one dtype: two
+    replicas behind ``register_engine_pool``, the OpenAI front end on a
+    thread, the trace of :func:`nalar_trace`, two migrations (replay, then
+    page shipping) of two sessions with the same history, B3 over the
+    served pages.  Returns {request name: generated token ids} and the
+    run's numbers."""
+    import threading
+
+    from repro_torch.core import NalarRuntime, PolicyChain
+    from repro_torch.launch.serve import OpenAIFrontend
+    from repro_torch.serving import SamplingParams, register_engine_pool
+
+    step_ms = []
+
+    def timed(engine):
+        step = engine.step
+
+        def timed_step():
+            t = time.perf_counter()
+            n = step()
+            if n:
+                step_ms.append((time.perf_counter() - t) * 1e3)
+            return n
+        engine.step = timed_step
+        return engine
+
+    engines = [timed(rt.InferenceEngine(model, params, max_batch=8,
+                                        max_seq=1024, page_size=64,
+                                        prefill_chunk=8))
+               for _ in range(2)]
+    # a quiet global policy: routing is the Router's own (pin, KV locality,
+    # least ETA), so the trace lands the same way in both dtypes
+    rtm = NalarRuntime(simulate=False, policy=PolicyChain(),
+                       nodes={"n0": {"GPU": 2, "CPU": 8}})
+    register_engine_pool(rtm, "llm", engines,
+                         sampling=SamplingParams(max_new_tokens=32),
+                         resources={"GPU": 1})
+    rtm.start()
+    server = OpenAIFrontend(rtm, default_max_tokens=32).serve(port=0)
+    port = server.server_address[1]
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    pool = rtm.engine_backends["llm"]
+    iids = pool.instance_ids
+    try:
+        def payload(name, messages, stream):
+            return dict(model="nalar-llm", messages=messages, user=name,
+                        max_tokens=32, stream=stream)
+
+        results, homes = {}, {}
+        waves = nalar_trace()
+        t0 = time.perf_counter()
+        for w, wave in enumerate(waves):
+            if w == 1:
+                homes = {n: rtm.kv_registry.lookup(n).instance_id
+                         for n, _, _ in waves[0] if n.startswith("agent")}
+            calls = [(n, payload(n, m, st)) for n, m, st in wave]
+            results.update({(n, w + 1): r
+                            for n, r in http_wave(port, calls).items()})
+        wall = time.perf_counter() - t0
+        wave_steps = np.array(step_ms)
+        if profile:
+            # a third wave, profiled: 4 new users of 64 words and 8 new
+            # tokens each (a short window: reading back the host trace of
+            # both replicas takes several times the window itself)
+            rng = np.random.default_rng(5)
+            calls = [(f"prof{i}", dict(payload(f"prof{i}", [{
+                "role": "user", "content": " ".join(
+                    f"p{int(x)}" for x in rng.integers(0, 1 << 30, 64))}],
+                False), max_tokens=8)) for i in range(4)]
+            busy_ms, wall_ms = profiled(torch,
+                                        lambda: http_wave(port, calls))
+        hits = sum(e.metrics.prefix_hits for e in engines)
+        for (name, turn), r in results.items():
+            n_tok = len(r["text"].split())
+            check(n_tok == 32 and (r["usage"] is None
+                                   or r["usage"]["completion_tokens"] == 32),
+                  f"{dtype_name} {name} turn {turn}: {n_tok} tokens")
+        turn2 = {n: m for n, m, _ in waves[1]}
+        for name, home in homes.items():
+            check(rtm.kv_registry.lookup(name).instance_id == home,
+                  f"{name}'s second turn left the replica holding its KV")
+            r = results[(name, 2)]
+            # unstreamed answers carry usage: a warm turn sends only its
+            # own "user:" and words, its history is resident
+            want = 1 + len(turn2[name][0]["content"].split())
+            check(r["usage"] is None or r["usage"]["prompt_tokens"] == want,
+                  f"{name}'s second turn sent {r['usage']} tokens, not its "
+                  f"{want} new ones")
+        check(hits >= 4, f"{dtype_name}: only {hits} prefix hits")
+        streamed = [r["ttft"] for r in results.values()
+                    if r["ttft"] is not None]
+        check(len(streamed) == 8 and all(r["events"] > 1 for r in
+                                          results.values()
+                                          if r["ttft"] is not None),
+              f"{dtype_name}: the stream was not incremental")
+        same_stream = [results[(f"user{i + 4}", 2)]["text"]
+                       == results[(f"user{i}", 1)]["text"] for i in range(4)]
+
+        # migration: two sessions with one history on one replica; the
+        # first moves by transcript replay, its pages are then dropped, the
+        # second moves by page shipping; the next turn must decode alike.
+        # Their role ("developer") starts no other prompt, so the replay
+        # finds no resident prefix at the destination (the pool matches a
+        # prefix down to one token) and prefills the whole transcript.
+        mig_rng = np.random.default_rng(9)
+        first, second = ([{"role": "developer", "content": " ".join(
+            f"m{int(x)}" for x in mig_rng.integers(0, 1 << 30, n))}]
+            for n in (200, 40))
+        mig = {}
+        for sid in ("mig-replay", "mig-pages"):
+            rtm.router.pin(sid, "llm", iids[0])
+            mig[sid, 1] = http_chat(port, payload(sid, first, False))
+        for sid, ship in (("mig-replay", False), ("mig-pages", True)):
+            pool.page_migration = ship
+            check(pool.migrate_session(sid, iids[0], iids[1]) >= 1,
+                  f"{sid} did not migrate")
+            mode = pool.migrations[-1]["mode"]
+            check(mode == ("pages" if ship else "replay"),
+                  f"{sid} migrated by {mode}")
+            mig[sid, 2] = http_chat(port, payload(sid, second, False))
+            check(rtm.kv_registry.lookup(sid).instance_id == iids[1],
+                  f"{sid}'s next turn is not on the destination")
+            if not ship:
+                rtm.kv_registry.release(sid)
+        pool.page_migration = True
+        same_mig = mig["mig-replay", 2]["text"] == mig["mig-pages", 2]["text"]
+        print(f"[nalar] {dtype_name} migrations: {pool.migrations}; "
+              f"pool stats {pool.stats}; next turn after page shipping "
+              f"{'equals' if same_mig else 'DIFFERS FROM'} replay")
+        n_b3 = nalar_b3_over_pool(torch, rtm, paged_ops, paged_ref,
+                                  dtype_name)
+        for e in engines:
+            e.pool.check_invariants()
+        toks = {f"{n}/{t}": [int(x) for x in r["text"].split()]
+                for (n, t), r in list(results.items()) + list(mig.items())}
+        ttft = np.array(streamed) * 1e3
+        print(f"[nalar] {dtype_name}: 2 replicas of {model.cfg.arch_id} "
+              f"over HTTP, 16 requests (8 streamed) of 32 new tokens in "
+              f"{wall:.2f} s: {16 * 32 / wall:.1f} generated tok/s; TTFT "
+              f"(streamed, HTTP) p50 {np.percentile(ttft, 50):.1f} ms p99 "
+              f"{np.percentile(ttft, 99):.1f} ms; engine step ms p50 "
+              f"{np.percentile(wave_steps, 50):.2f} p99 "
+              f"{np.percentile(wave_steps, 99):.2f} over {len(wave_steps)} "
+              f"steps of both replicas; "
+              f"prefix hits {hits}; B3 read {n_b3} resident sessions")
+        if profile:
+            print(f"[profile] nalar {dtype_name}, a third wave of 4 "
+                  f"requests (8 new tokens) over HTTP: "
+                  f"{wall_ms:.1f} ms host wall, device busy {busy_ms:.1f} ms "
+                  f"({100 * busy_ms / wall_ms:.1f} %)")
+        return toks, same_stream, same_mig
+    finally:
+        server.shutdown()
+        server.server_close()
+        serving.join(timeout=30)
+        rtm.shutdown()
+
+
+def phase_nalar(torch, rt, cfg, cpu_params, counters, paged_ops, paged_ref,
+                card):
+    """The Nalar serving path at full width: runtime, engine pool, bridge
+    and OpenAI front end over two qwen3-0.6b replicas that share one
+    params tree (the serve phase's weights, carried over with
+    ``interop.params_from_numpy``), in float32 and in bf16.  Float32 holds
+    streamed == unstreamed text and page shipping == replay; bf16 holds
+    completion and the pools' invariants and reports its agreement with
+    float32.  Then the port's own ``serve.selftest`` on the card.  Every
+    launch counter is set to 0 before the two runs and read after them;
+    returns B3's launches (its reads of the served pools)."""
+    from repro_torch.launch.serve import selftest
+
+    def to_numpy(tree):
+        return {k: to_numpy(v) if isinstance(v, dict) else v.numpy()
+                for k, v in tree.items()}
+    np_params = to_numpy(cpu_params)
+    for c in counters.values():
+        c.launches = 0
+    runs = {}
+    for name, dt in (("float32", None), ("bfloat16", torch.bfloat16)):
+        t0 = time.perf_counter()
+        model = rt.build_model(cfg.replace(dtype=name))
+        params = rt.params_from_numpy(np_params, device="cuda", dtype=dt)
+        runs[name] = nalar_run(torch, rt, model, params, name, paged_ops,
+                               paged_ref, profile=name == "bfloat16")
+        del params
+        torch.cuda.empty_cache()
+        print(f"[time] nalar {name}: {time.perf_counter() - t0:.1f} s")
+    launches = {name: c.launches for name, c in counters.items()}
+    f32, same_stream, same_mig = runs["float32"]
+    check(all(same_stream), f"float32: streamed text differs from the "
+                            f"unstreamed answer to the same prompt: "
+                            f"{same_stream}")
+    check(same_mig, "float32: the next turn after page shipping differs "
+                    "from the one after replay")
+    bf16, bf_stream, bf_mig = runs["bfloat16"]
+    agree = sum(f32[k] == bf16[k] for k in f32)
+    print(f"[nalar] bf16 vs float32: {agree}/{len(f32)} requests with the "
+          f"same tokens; bf16 streamed == unstreamed {sum(bf_stream)}/4, "
+          f"page shipping == replay {bf_mig} (reported, not held); card "
+          f"{card}")
+    print(f"[nalar] launches over both runs: {launches}")
+    check(launches["paged_decode"] > 0
+          and launches["paged_decode_chunk"] > 0
+          and launches["flash_attention_bhsd"] > 0,
+          f"a kernel of the Nalar path never launched: {launches}")
+    t0 = time.perf_counter()
+    selftest(device="cuda")
+    print(f"[nalar] serve.selftest(device='cuda') passed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches["paged_decode"]
 
 
 class ForwardTally:
@@ -2100,7 +2548,8 @@ def main() -> int:
                 "decode_ring": paged_ops.decode_attention_kernel,
                 "moe_ffn": moe_ops.moe_ffn,
                 "ssd_chunk_scan": ssd_ops.ssd_chunk_scan,
-                "rglru_scan": scan_ops.rglru_scan}
+                "rglru_scan": scan_ops.rglru_scan,
+                "paged_decode": paged_ops.paged_decode}
     decode_batch, decode_prompt = 8, 256
     try:
         phase_build(_build)
@@ -2118,7 +2567,12 @@ def main() -> int:
             torch, rt, cfg, model, params, cpu_params, counters,
             decode_batch, decode_prompt)
         phase_dense(torch, rt, cfg, model, params, counters, paged_tokens)
-        del model, params, cpu_params
+        del model, params
+        torch.cuda.empty_cache()
+        launches["paged_decode"] = phase_nalar(
+            torch, rt, cfg, cpu_params, counters, paged_ops, paged_ref, card)
+        print(f"[time] nalar done at {time.perf_counter() - t_start:.1f} s")
+        del cpu_params
         torch.cuda.empty_cache()
         print(f"[time] qwen3 phases done at "
               f"{time.perf_counter() - t_start:.1f} s")

@@ -47,6 +47,13 @@
 
 namespace {
 
+// The kernel's dynamic shared memory limit is set to the card's per-block
+// limit (227 KB on an H100), the same value on every call, not to the
+// launch's own size: a caller on another thread (one engine per pump
+// thread) would otherwise lower it under a launch that needs more, which
+// then fails as an invalid argument.
+constexpr int kMaxDynamicSmem = 232448;
+
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -209,7 +216,7 @@ int launch_tiles(const void* q, const void* k, const void* v, void* out,
        static_cast<size_t>(BQ) * D + 3 * static_cast<size_t>(BQ));
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kMaxDynamicSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(BH, (Sq + BQ - 1) / BQ);
   flash_kernel<T, BK><<<grid, kThreads, smem, stream>>>(

@@ -60,6 +60,13 @@
 
 namespace {
 
+// The kernel's dynamic shared memory limit is set to the card's per-block
+// limit (227 KB on an H100), the same value on every call, not to the
+// launch's own size: a caller on another thread (one engine per pump
+// thread) would otherwise lower it under a launch that needs more, which
+// then fails as an invalid argument.
+constexpr int kMaxDynamicSmem = 232448;
+
 constexpr int kThreads = 256;
 constexpr int kBC = 16;    // rows per block (ops.MOE_BLOCK_ROWS)
 constexpr int kBF = 256;   // F columns per phase-1 tile: one per thread
@@ -278,7 +285,7 @@ cudaError_t launch(const void* x, const void* wg, const void* wu,
   if (smem > 48 * 1024) {  // above 48 KB only when asked for (per device)
     const cudaError_t err = cudaFuncSetAttribute(
         moe_ffn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kMaxDynamicSmem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((C + kBC - 1) / kBC, E);

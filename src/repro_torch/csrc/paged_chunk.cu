@@ -35,6 +35,13 @@
 
 namespace {
 
+// The kernel's dynamic shared memory limit is set to the card's per-block
+// limit (227 KB on an H100), the same value on every call, not to the
+// launch's own size: a caller on another thread (one engine per pump
+// thread) would otherwise lower it under a launch that needs more, which
+// then fails as an invalid argument.
+constexpr int kMaxDynamicSmem = 232448;
+
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -198,7 +205,7 @@ int launch(const void* q, const void* k, const void* v, const void* pt,
        static_cast<size_t>(R) * D + 3 * static_cast<size_t>(R));
   cudaError_t err = cudaFuncSetAttribute(
       paged_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kMaxDynamicSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   paged_chunk_kernel<T><<<dim3(B, Hkv), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

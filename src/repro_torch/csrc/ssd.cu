@@ -48,6 +48,13 @@
 
 namespace {
 
+// The kernel's dynamic shared memory limit is set to the card's per-block
+// limit (227 KB on an H100), the same value on every call, not to the
+// launch's own size: a caller on another thread (one engine per pump
+// thread) would otherwise lower it under a launch that needs more, which
+// then fails as an invalid argument.
+constexpr int kMaxDynamicSmem = 232448;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCols = 16;     // columns of P per block (ops.SSD_COLS)
@@ -266,7 +273,7 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
   const size_t smem = sizeof(float) * static_cast<size_t>(smem_floats(Q, N));
   cudaError_t err = cudaFuncSetAttribute(
       ssd_chunk_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kMaxDynamicSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   ssd_chunk_scan_kernel<T><<<dim3(P / kCols, H, B), kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),

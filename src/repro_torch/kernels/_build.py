@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
@@ -30,11 +31,15 @@ SOURCES: Dict[str, str] = {
     "moe_ffn": "moe_ffn.cu",
     "ssd": "ssd.cu",
     "rglru_scan": "rglru_scan.cu",
+    "paged_decode": "paged_decode.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# engines on several threads (one per replica's pump) may ask for the same
+# library at once; one builds it, the others wait and load it
+_load_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -90,11 +95,12 @@ def build_all(names: Iterable[str] = tuple(SOURCES)
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``name``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build_all([name])
-        lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
-    return lib
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build_all([name])
+            lib = ctypes.CDLL(str(path))
+            _loaded[name] = lib
+        return lib

@@ -1,10 +1,13 @@
 """Wrappers of the decode attention kernels: paged chunk attention
-(``csrc/paged_chunk.cu``) and ring decode attention (``csrc/decode_ring.cu``).
+(``csrc/paged_chunk.cu``), one-token split-KV paged decode
+(``csrc/paged_decode.cu``) and ring decode attention
+(``csrc/decode_ring.cu``).
 
 A CUDA tensor launches the hand-written kernel and the call raises if it
 cannot; a CPU tensor takes the plain version in :mod:`.ref`.  Nothing else
-chooses between them.  ``paged_decode_chunk.launches`` and
-``decode_attention_kernel.launches`` count the kernels' launches.
+chooses between them.  ``paged_decode_chunk.launches``,
+``paged_decode.launches`` and ``decode_attention_kernel.launches`` count
+the kernels' launches.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import Optional
 import torch
 
 from .. import _build
-from .ref import decode_ring_ref, paged_decode_chunk_ref
+from .ref import decode_ring_ref, paged_decode_chunk_ref, paged_decode_ref
 
 _SMEM_LIMIT = 232_448     # bytes of shared memory a block may use (H100)
 
@@ -102,6 +105,109 @@ def paged_decode_chunk(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_decode_chunk.launches = 0
+
+
+# ------------------------------------------------------- paged decode (B3)
+@functools.lru_cache(maxsize=None)
+def _decode_kernel():
+    lib = _build.load("paged_decode")
+    fn = lib.paged_decode_attention
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.paged_decode_error_string.argtypes = [ctypes.c_int]
+    lib.paged_decode_error_string.restype = ctypes.c_char_p
+    return fn, lib.paged_decode_error_string
+
+
+def _decode_smem_bytes(n_rep: int, D: int, P: int, elem: int) -> int:
+    """Dynamic shared memory of one page block (must match the kernel):
+    the page's K and V rows in their own type, q's rows, the scores and
+    the row states in f32."""
+    return 2 * elem * P * D + 4 * (n_rep * D + n_rep * P + 2 * n_rep)
+
+
+def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, page_table: torch.Tensor,
+                 lengths: torch.Tensor, *, scale: float,
+                 n_rep: int) -> torch.Tensor:
+    """One-token attention straight over the KV pool.
+
+    q [B,H,D] with H = Hkv*n_rep; pages [n_pages,P,Hkv,D]; page_table
+    [B,max_pages] int32 (-1 = no page: the kernel skips it, the plain
+    version reads page 0, as the reference's kernel and oracle do; no
+    caller puts one below a sequence's length); lengths [B] int32, the
+    visible tokens of each sequence.  -> [B,H,D] in q's type.
+
+    A row with ``lengths[b] == 0`` sees no token; no caller sends one.
+    The CUDA kernel returns zeros for it, the plain version (gather, then
+    attention at ``pos = -1``) the mean of V over the gathered window.
+
+    The layout checks hold on every device, so the CPU path takes exactly
+    what the kernel takes."""
+    if q.dim() != 3:
+        raise ValueError(f"q must be [B,H,D], got {tuple(q.shape)}")
+    B, H, D = q.shape
+    if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError("k_pages/v_pages must both be [n_pages,P,Hkv,D]")
+    _n, P, Hkv, Dk = k_pages.shape
+    if Dk != D or H != Hkv * n_rep:
+        raise ValueError(f"q {tuple(q.shape)} does not match pages "
+                         f"{tuple(k_pages.shape)} with n_rep={n_rep}")
+    if page_table.dim() != 2 or page_table.shape[0] != B \
+            or tuple(lengths.shape) != (B,):
+        raise ValueError("page_table must be [B,max_pages] and lengths [B]")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("page_table", page_table), ("lengths", lengths)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in (torch.bfloat16, torch.float32) \
+            or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise ValueError("q and pages must share one type, bf16 or f32")
+    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError("page_table and lengths must be int32")
+    if q.device.type == "cpu":
+        return paged_decode_ref(q, k_pages, v_pages, page_table, lengths,
+                                scale=scale, n_rep=n_rep)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode: unsupported device {q.device}")
+    vec = 16 // q.element_size()
+    if D % vec or any(t.data_ptr() % 16 for t in (k_pages, v_pages)):
+        raise ValueError(f"head dim must be a multiple of {vec} and the "
+                         f"pages 16-byte aligned")
+    smem = _decode_smem_bytes(n_rep, D, P, q.element_size())
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"a {P}-token page of head dim {D} with n_rep="
+                         f"{n_rep} needs {smem} bytes of shared memory "
+                         f"(limit {_SMEM_LIMIT})")
+    maxp = page_table.shape[1]
+    out = torch.empty_like(q)
+    if B == 0 or maxp == 0:
+        return out.zero_()
+    part_acc = torch.empty((B * H, maxp, D), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B * H, maxp, 2), dtype=torch.float32,
+                          device=q.device)
+    fn, err_str = _decode_kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 page_table.data_ptr(), lengths.data_ptr(),
+                 part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+                 B, Hkv, n_rep, D, P, maxp, float(scale),
+                 int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"paged_decode_attention launch failed: "
+                           f"{err_str(err).decode()} (cuda error {err})")
+    paged_decode.launches += 1
+    return out
+
+
+paged_decode.launches = 0
+# the reference's entry name (``kernels/paged_attention/ops.py``)
+paged_decode_attention = paged_decode
 
 
 # ------------------------------------------------------------- ring decode

@@ -48,6 +48,26 @@ def decode_ring_ref(q: torch.Tensor, cache_k: torch.Tensor,
     return out.reshape(B, 1, Hkv * n_rep, D).to(q.dtype)
 
 
+def paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                     v_pages: torch.Tensor, page_table: torch.Tensor,
+                     lengths: torch.Tensor, *, scale: float,
+                     n_rep: int) -> torch.Tensor:
+    """One-token attention, q [B,H,D] over pages [n_pages,P,Hkv,D] by
+    ``page_table`` [B,max_pages]: the pages gathered densely (a -1 entry
+    reads page 0, as the reference's ``paged_decode_ref`` does), then
+    :func:`decode_ring_ref` at ``pos = lengths - 1``, so tokens below
+    ``lengths[b]`` are visible.  -> [B,H,D]."""
+    B, H, D = q.shape
+    _n, P, Hkv, _ = k_pages.shape
+    maxp = page_table.shape[1]
+    idx = page_table.long().clamp(min=0)
+    k = k_pages[idx].reshape(B, maxp * P, Hkv, D)
+    v = v_pages[idx].reshape(B, maxp * P, Hkv, D)
+    out = decode_ring_ref(q[:, None], k, v, lengths - 1, scale=scale,
+                          n_rep=n_rep)
+    return out[:, 0]
+
+
 def paged_decode_chunk_ref(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, page_table: torch.Tensor,
                            pos: torch.Tensor, *, scale: float,

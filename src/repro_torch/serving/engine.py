@@ -30,15 +30,18 @@ ssm and hybrid families, on its three data planes:
     ``prefill_chunk=0`` it runs the monolithic bucket prefill instead,
     through the flash attention kernel;
   * ``warm_session`` replays a transcript into the pool (the replay side of
-    migration) without occupying a slot.
+    migration) without occupying a slot;
+  * the Nalar bridge's side of the engine: ``submit_async`` registers
+    completion and stream-chunk callbacks that ``drain_completions`` fires
+    off the step lock, finished requests wait in a bounded list, the pool
+    takes the ``KVRegistry``'s hints (``bind_registry``) and the engine
+    ``touch``es a session's residency at admission, warm and finish.
 
 The device is ``torch.device("cuda")`` unless the caller names another;
 each step copies only the [B] greedy tokens to the host (the [B,V]
 next-token rows stay on the device unless a stochastic request samples
 from them).  Not ported yet (ROADMAP.md): speculative decoding
-(``draft_model``), the vlm and audio families, request
-``extras``, and the runtime-facing plumbing of the bridge (KV registry
-hooks, completion callbacks, token streaming).
+(``draft_model``), the vlm and audio families and request ``extras``.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ import threading
 import time
 import zlib
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,12 +83,25 @@ class EngineMetrics:
     admission_rejects: int = 0
     # resumes refused because the restored cache would not fit the slot
     resume_overflows: int = 0
+    # resumes refused because the family cannot restore from the pool (the
+    # reference's audio family; 0 until A12 ports it)
+    resume_unsupported: int = 0
     # admissions/steps aborted because the pool could not provide pages
     # (all residents protected or pinned)
     paged_append_failures: int = 0
+    # speculative decoding: rounds, draft tokens proposed and accepted (0
+    # until A9 ports it)
+    spec_rounds: int = 0
+    spec_proposed: int = 0
+    spec_accepted: int = 0
     # requests dropped because their deadline passed: rejected at admission
     # (push/pop) or preempted mid-decode with slot + KV pages reclaimed
     expired: int = 0
+
+    @property
+    def spec_acceptance(self) -> float:
+        return (self.spec_accepted / self.spec_proposed
+                if self.spec_proposed else 0.0)
 
     @property
     def decode_tokens_per_step(self) -> float:
@@ -145,10 +161,13 @@ def get_slot(cache: dict, slot: int) -> dict:
 
 class InferenceEngine:
     def __init__(self, model: Model, params: dict, *, max_batch: int = 8,
-                 max_seq: int = 512, pool_pages: int = 0, page_size: int = 64,
+                 max_seq: int = 512, instance_id: str = "engine:0",
+                 kv_registry=None, pool_pages: int = 0, page_size: int = 64,
                  rng_seed: int = 0, prefill_chunk: int = 8,
-                 max_queue: int = 0, paged_decode: bool = True,
-                 draft_model: Optional[Model] = None,
+                 max_queue: int = 0, queue_watermark: float = 0.75,
+                 finished_cap: int = 8192, prefix_sharing: bool = True,
+                 paged_decode: bool = True,
+                 draft_model: Optional[Model] = None, tier: str = "",
                  device: DeviceLike = None) -> None:
         if draft_model is not None:
             raise _not_ported("speculative decoding (draft_model)", "A9")
@@ -161,14 +180,36 @@ class InferenceEngine:
         self.params = params
         self.max_batch = max_batch
         self.max_seq = max_seq
+        self.instance_id = instance_id
+        self.kv_registry = kv_registry
+        self.tier = str(tier)
         self.metrics = EngineMetrics()
+        # optional fault injector (serving.chaos); when set, step() calls
+        # chaos.before_step(engine) outside the lock
+        self.chaos: Optional[Any] = None
         # prompt tokens consumed per slot per step while prefilling;
         # 0 = monolithic bucket prefill at admission
         self.prefill_chunk = int(prefill_chunk)
         self.max_queue = int(max_queue)
+        # saturation fraction above which routers should shed new sessions
+        # to a sibling replica (advisory, through telemetry)
+        self.queue_watermark = queue_watermark
+        self.finished_cap = int(finished_cap)
         self.queue = WaitQueue(maxsize=self.max_queue)
         self._rng_seed = int(rng_seed)       # base of request streams
         self._lock = threading.RLock()
+        # completion plumbing has its own lock: submissions and drains never
+        # serialize behind a long step
+        self._done_lock = threading.Lock()
+        # request_id -> completion callback, finished requests awaiting a
+        # drain, and the token-streaming callbacks with the (request,
+        # chunk) pairs the steps emitted; callbacks fire from
+        # drain_completions, off the step lock, chunks before completions
+        self._callbacks: Dict[str, Callable[[Request], None]] = {}
+        self._finished: List[Request] = []
+        self._stream_cbs: Dict[str, Callable[[Request, List[int]],
+                                             None]] = {}
+        self._stream_pending: List[Tuple[Request, List[int]]] = []
 
         # per-slot state: the slim cache is each slot's next position, kept
         # on the host (the K/V lives in the pool pages)
@@ -192,19 +233,22 @@ class InferenceEngine:
                                      * 2)
             self.pool = PagedKVPool(self.cfg, n_pages=n_pages,
                                     page_size=page_size, device=self.device)
+        if kv_registry is not None:
+            kv_registry.register_hook(instance_id, self.pool.on_hint)
         W = self.cfg.sliding_window
+        # a paged pool where a cache position maps 1:1 to a token position:
+        # no sliding-window ring wrap
+        linear = not self._state_pool and (not W or self.max_seq <= W)
         # cross-session prefix sharing: admission and warm_session consult
-        # the pool's prefix index.  Valid only for a paged pool where a
-        # cache position maps 1:1 to a token prefix position: no
-        # sliding-window ring wrap.
-        self._prefix_share_ok = (not self._state_pool
-                                 and (not W or self.max_seq <= W))
+        # the pool's prefix index
+        self.prefix_sharing = bool(prefix_sharing)
+        self._prefix_share_ok = self.prefix_sharing and linear
         # paged-native decode: the KV pool IS the decode cache.  Windowed
         # configs qualify only when the ring never wraps (slot == position,
         # so the linear page layout matches the ring layout); the others,
         # and paged_decode=False, run the dense plane.
         self.paged_decode = bool(paged_decode)
-        self._paged = self.paged_decode and self._prefix_share_ok
+        self._paged = self.paged_decode and linear
         # dense per-slot cache length
         self._slot_C = min(self.max_seq, W) if W else self.max_seq
         # dense plane: the per-slot k/v [L,B,C,Hkv,Dh]; state-cache plane:
@@ -246,6 +290,70 @@ class InferenceEngine:
             raise
         return req.request_id
 
+    def submit_async(self, req: Request,
+                     on_done: Optional[Callable[[Request], None]] = None,
+                     on_chunk: Optional[
+                         Callable[[Request, List[int]], None]] = None) -> str:
+        """Queue ``req``; ``on_done(req)`` fires from ``drain_completions``
+        after the request finishes (the Nalar future-resolution hook).
+        ``on_chunk(req, tokens)`` fires from the same drain for every batch
+        of tokens the request's slot emitted since the previous drain, in
+        order, and always before the request's ``on_done``."""
+        with self._done_lock:
+            if on_done is not None:
+                self._callbacks[req.request_id] = on_done
+            if on_chunk is not None:
+                self._stream_cbs[req.request_id] = on_chunk
+        try:
+            return self.submit(req)
+        except BaseException:
+            with self._done_lock:       # rejected: no completion will fire
+                self._callbacks.pop(req.request_id, None)
+                self._stream_cbs.pop(req.request_id, None)
+            raise
+
+    def poll_finished(self) -> List[Request]:
+        """Requests finished since the last poll/drain (no callbacks fired)."""
+        with self._done_lock:
+            out, self._finished = self._finished, []
+        return out
+
+    def drain_completions(self) -> int:
+        """Fire stream-chunk then completion callbacks for the work the step
+        loop emitted.  The bridge's pump thread calls it after each step,
+        outside the engine lock; a request's chunk callbacks always fire
+        before (and never after) its completion callback."""
+        with self._done_lock:
+            chunks, self._stream_pending = self._stream_pending, []
+            ccbs = [(r, c, self._stream_cbs.get(r.request_id))
+                    for r, c in chunks]
+            done, self._finished = self._finished, []
+            cbs = [(r, self._callbacks.pop(r.request_id, None)) for r in done]
+            for r in done:
+                self._stream_cbs.pop(r.request_id, None)
+        for req, chunk, ccb in ccbs:
+            if ccb is not None:
+                ccb(req, chunk)
+        for req, cb in cbs:
+            if cb is not None:
+                cb(req)
+        return len(cbs)
+
+    def bind_registry(self, kv_registry, instance_id: str) -> None:
+        """(Re)bind this engine to a Nalar runtime identity: its telemetry
+        and pool hints are tagged with the agent-instance id, so the
+        runtime's Router and KVRegistry see one name."""
+        self.instance_id = instance_id
+        self.kv_registry = kv_registry
+        if kv_registry is not None:
+            kv_registry.register_hook(instance_id, self.pool.on_hint)
+
+    def _touch(self, session_id: str, tokens: int, now: float) -> None:
+        """Tell the KV registry that ``session_id`` holds ``tokens`` cached
+        tokens on this engine."""
+        if self.kv_registry is not None:
+            self.kv_registry.touch(session_id, self.instance_id, tokens, now)
+
     def generate(self, prompt, session_id: str = "",
                  sampling: Optional[SamplingParams] = None) -> Request:
         """Synchronous helper: submit + run until this request finishes."""
@@ -260,6 +368,10 @@ class InferenceEngine:
     def saturation(self) -> float:
         """Wait-queue depth as a fraction of capacity (0.0 if unbounded)."""
         return self.queue.saturation()
+
+    def overloaded(self) -> bool:
+        """Above the shed watermark: routers should prefer a sibling."""
+        return bool(self.max_queue) and self.saturation() >= self.queue_watermark
 
     def _prefill(self, req: Request, align: str = "left"):
         """Monolithic bucketed prefill (``prefill_chunk=0`` + warm replay).
@@ -372,11 +484,15 @@ class InferenceEngine:
                 return
             now = time.monotonic()
             while 0 <= req.deadline_wall <= now:
-                # expired while waiting: never occupy a slot
+                # expired while waiting: never occupy a slot.  Delivered as
+                # finished with expired=True, so the bridge's callback still
+                # fires and resolves the future DeadlineExceeded.
                 req.expired = True
                 req.finished = True
                 req.finished_at = now
                 self.metrics.expired += 1
+                with self._done_lock:
+                    self._finished.append(req)
                 req = self.queue.pop_next()
                 if req is None:
                     return
@@ -470,6 +586,7 @@ class InferenceEngine:
                 continue
             self.slots[slot] = req
             self._active_mask[slot] = True
+            self._touch(req.session_id, len(req.prompt), now)
 
     def _admit_prefilled(self, slot: int, req: Request, now: float) -> bool:
         """Monolithic admission: bucket prefill, write the row's K/V into
@@ -503,6 +620,9 @@ class InferenceEngine:
                 self.metrics.completed += 1
                 req.finished = True
                 req.finished_at = time.monotonic()
+                self._emit_stream(req)
+                with self._done_lock:
+                    self._finished.append(req)
                 return False
             self.pool.protect(sid)
             self._slot_sid[slot] = sid
@@ -516,6 +636,7 @@ class InferenceEngine:
             self.slots[slot] = req
             self._active_mask[slot] = True
             self._finish_slot(slot, time.monotonic())
+            self._touch(req.session_id, len(req.prompt), now)
             return False
         return True
 
@@ -543,6 +664,7 @@ class InferenceEngine:
                 # the transcript's last token
                 _logits, row_cache = self._prefill(req)
                 self.pool.store(session_id, row_cache, bucket)
+                self._touch(session_id, bucket, now)
                 return bucket
             if self._prefix_share_ok:
                 # resident-prefix fast path: pages covering a prefix of the
@@ -569,6 +691,7 @@ class InferenceEngine:
                     row_cache["v"][:, 0, :tokens], tokens, now,
                     token_ids=ids):
                 return 0
+            self._touch(session_id, tokens, now)
         return tokens
 
     def _warm_from_resident(self, session_id: str, toks: List[int],
@@ -587,15 +710,20 @@ class InferenceEngine:
             if sp.token_ids[:n] != toks[:n]:
                 return 0    # diverged: full replay reconciles via COW
             if sp.tokens >= len(toks):
+                self._touch(session_id, sp.tokens, now)
                 return sp.tokens
             resident = sp.tokens
         else:
             resident = pool.acquire_prefix(session_id, toks, now=now)
             if resident >= len(toks):
+                self._touch(session_id, resident, now)
                 return resident
         if resident <= 0:
             return 0
-        return self._extend_session(session_id, toks, resident, now)
+        tokens = self._extend_session(session_id, toks, resident, now)
+        if tokens:
+            self._touch(session_id, tokens, now)
+        return tokens
 
     def _extend_session(self, session_id: str, toks: List[int],
                         resident: int, now: float) -> int:
@@ -647,6 +775,8 @@ class InferenceEngine:
         to ``prefill_chunk`` prompt tokens in the same chunk forward.
         Returns #active sequences.
         """
+        if self.chaos is not None:
+            self.chaos.before_step(self)
         with self._lock:
             self._admit()
             now = time.monotonic()
@@ -688,9 +818,25 @@ class InferenceEngine:
                     done = True
                 if done:
                     self._finish_slot(i, now)
+                else:
+                    self._emit_stream(req)
             self.metrics.queued = len(self.queue)
             self.metrics.active = int(self._active_mask.sum())
             return len(active)
+
+    def _emit_stream(self, req: Request) -> None:
+        """Buffer the tokens this request's slot appended since the last
+        emission as one stream chunk (the caller holds the step lock;
+        ``drain_completions`` delivers it).  Only a request with a chunk
+        callback buffers anything."""
+        n = len(req.generated)
+        if n <= req.streamed:
+            return
+        chunk = [int(t) for t in req.generated[req.streamed:]]
+        req.streamed = n
+        with self._done_lock:
+            if req.request_id in self._stream_cbs:
+                self._stream_pending.append((req, chunk))
 
     def _paged_forward(self, toks: np.ndarray, valid: np.ndarray,
                        pos: np.ndarray, pt: np.ndarray):
@@ -906,45 +1052,91 @@ class InferenceEngine:
         req.finished = True
         req.finished_at = now
         if req.expired:
-            # deadline preemption: the partial generation never reaches the
-            # transcript, so leave no warm session cache behind (a later
-            # resume would continue from divergent history)
+            # deadline preemption: the partial generation is worthless and
+            # never reaches the transcript, so it emits nothing further and
+            # leaves no warm session cache behind (a later resume would
+            # continue from divergent history)
             self.metrics.expired += 1
             self._vacate_slot(slot)
             if req.session_id:
                 self.pool.release(req.session_id)
         else:
+            # flush the final tokens as a last chunk before delivery, so a
+            # consumer's chunk stream concatenates to the completion value
+            self._emit_stream(req)
             self.metrics.completed += 1
-            if self._state_pool and req.session_id:
-                # a copy of the slot's state row (the slot is recycled)
-                tokens = int(self._pos[slot])
-                row = {k: v.clone() for k, v in
-                       get_slot(self.cache, slot).items()}
-                row["pos"] = torch.tensor([tokens], dtype=torch.int32,
-                                          device=self.device)
-                self.pool.store(req.session_id, row, tokens)
-            elif not self._paged and req.session_id:
-                # dense plane: persist the slot's cache for prefix reuse on
-                # follow-ups (on the paged plane the pool pages ARE the
-                # session cache, already current through commit_append)
-                tokens = int(self._pos[slot])
-                row = get_slot(self.cache, slot)
-                ids = self._slot_tokens.get(slot)
-                if ids is not None and len(ids) != tokens:
-                    ids = None      # provenance lost: keep the write opaque
-                if tokens <= self.max_seq:
-                    self.pool.write_session(
-                        req.session_id, row["k"][:, 0, :tokens],
-                        row["v"][:, 0, :tokens], tokens, now, token_ids=ids)
+            if req.session_id:
+                self._touch(req.session_id, self._persist(slot, req, now),
+                            now)
             self._vacate_slot(slot)
+        with self._done_lock:
+            self._finished.append(req)
+            if len(self._finished) > self.finished_cap:
+                self._trim_finished()
+
+    def _persist(self, slot: int, req: Request, now: float) -> int:
+        """Keep a finishing session's cache for follow-ups; returns the
+        tokens it covers.  On the paged plane the pool pages ARE the
+        session cache, already current through ``commit_append``."""
+        tokens = int(self._pos[slot])
+        if self._paged:
+            sp = self.pool.session(req.session_id)
+            return sp.tokens if sp is not None else tokens
+        if self._state_pool:
+            # a copy of the slot's state row (the slot is recycled)
+            row = {k: v.clone() for k, v in
+                   get_slot(self.cache, slot).items()}
+            row["pos"] = torch.tensor([tokens], dtype=torch.int32,
+                                      device=self.device)
+            self.pool.store(req.session_id, row, tokens)
+            return tokens
+        # dense plane: write the slot's cache into the session's pages
+        row = get_slot(self.cache, slot)
+        ids = self._slot_tokens.get(slot)
+        if ids is not None and len(ids) != tokens:
+            ids = None      # provenance lost: keep the write opaque
+        if tokens <= self.max_seq:
+            self.pool.write_session(
+                req.session_id, row["k"][:, 0, :tokens],
+                row["v"][:, 0, :tokens], tokens, now, token_ids=ids)
+        return tokens
+
+    def _trim_finished(self) -> None:
+        """Bound the finished list without losing async completions.
+
+        Sync callers never drain, so the list must stay bounded; but a
+        request with a registered callback still owes its caller a
+        completion.  Evict the oldest callback-less requests first; only
+        past twice the cap (callbacks registered but never drained) are
+        callback-bearing requests evicted too, with their callback entries.
+        The caller holds ``_done_lock``."""
+        cut = len(self._finished) - self.finished_cap // 2
+        kept: List[Request] = []
+        for idx, r in enumerate(self._finished):
+            if idx < cut and r.request_id not in self._callbacks:
+                continue
+            kept.append(r)
+        overflow = len(kept) - 2 * self.finished_cap
+        if overflow > 0:
+            for r in kept[:overflow]:
+                self._callbacks.pop(r.request_id, None)
+            kept = kept[overflow:]
+        self._finished = kept
 
     def cancel_request(self, request_id: str) -> bool:
         """Abandon one request (hedge loser / caller gone): remove it from
         the wait queue, or vacate its batch slot mid-decode — the slot and
         its protected KV pages are reclaimed through the normal vacate
-        path.  The request is NOT delivered as finished.  Returns True if
-        the request was found."""
+        path.  The request is NOT delivered as finished and its callbacks
+        are dropped: the caller resolved the future elsewhere.  Returns
+        True if the request was found."""
         with self._lock:
+            with self._done_lock:
+                self._callbacks.pop(request_id, None)
+                self._stream_cbs.pop(request_id, None)
+                self._stream_pending = [
+                    (r, c) for r, c in self._stream_pending
+                    if r.request_id != request_id]
             req = self.queue.remove(request_id)
             if req is not None:
                 self.metrics.queued = len(self.queue)
@@ -961,6 +1153,27 @@ class InferenceEngine:
                     self.metrics.active = int(self._active_mask.sum())
                     return True
         return False
+
+    def abort_all(self) -> int:
+        """Clear the wait queue and vacate every slot (replica death, the
+        bridge's ``fail_inflight``): no result will be delivered, and a
+        recycled slot must not inherit a dead request's pending prompt.
+        Returns the number of requests dropped."""
+        with self._lock:
+            n = self.queue.clear()
+            for slot in range(self.max_batch):
+                if self.slots[slot] is not None:
+                    n += 1
+                    self._vacate_slot(slot)
+            self._pending_prompt.clear()
+            self._slot_tokens.clear()
+            with self._done_lock:
+                self._callbacks.clear()
+                self._stream_cbs.clear()
+                self._stream_pending.clear()
+            self.metrics.queued = 0
+            self.metrics.active = 0
+            return n
 
     # ------------------------------------------------------------ telemetry
     def run_until_idle(self, max_steps: int = 100_000) -> None:
@@ -992,8 +1205,17 @@ class InferenceEngine:
                 "expired_rejects": self.queue.expired_rejects,
                 "prefill_chunk": self.prefill_chunk,
                 "paged_decode": self._paged,
+                # the paged step's attention runs the CUDA kernel on a card
+                "paged_kernel": self._paged and self.device.type == "cuda",
+                "tier": self.tier,
                 "device": str(self.device),
+                "speculative": False,
+                "spec_rounds": m.spec_rounds,
+                "spec_proposed": m.spec_proposed,
+                "spec_accepted": m.spec_accepted,
+                "spec_acceptance": m.spec_acceptance,
                 "decode_tokens_per_step": m.decode_tokens_per_step,
                 "resume_overflows": m.resume_overflows,
+                "resume_unsupported": m.resume_unsupported,
                 "paged_append_failures": m.paged_append_failures,
                 "slot_sessions": self.slot_sessions()}

@@ -405,6 +405,44 @@ class PagedKVPool:
             self.stats["prefix_tokens"] += matched
             return matched
 
+    # ----------------------------------------------------------- hint hooks
+    def on_hint(self, session_id: str, hint: str) -> None:
+        """KVRegistry hook target (retain/drop/offload/migrate_*)."""
+        with self._lock:
+            sp = self._sessions.get(session_id)
+            if sp is None:
+                return
+            if hint == "retain":
+                sp.pinned = True
+            elif hint == "drop":
+                sp.pinned = False
+                # a protected session is the live write target of an active
+                # paged decode: freeing its pages under the step would hand
+                # them to another session mid-write.  The hint downgrades
+                # to unpin; LRU reclaims the pages once decode finishes.
+                if session_id not in self._protected:
+                    self._release(sp)
+                    self._sessions.pop(session_id, None)
+            elif hint == "offload":
+                sp.offloaded = True
+                sp.pinned = False
+            elif hint == "migrate_out":
+                # ownership moved away; drop local references (shared pages
+                # stay alive for their remaining owners)
+                if session_id not in self._protected:
+                    self._release(sp)
+                    self._sessions.pop(session_id, None)
+            # "migrate_in": the pages arrive through import_session
+
+    # ----------------------------------------------------------- migration
+    def compatible_with(self, other: "PagedKVPool") -> bool:
+        """Page payloads are portable between pools of identical geometry."""
+        return (isinstance(other, PagedKVPool)
+                and self.page_size == other.page_size
+                and self.k.shape[0] == other.k.shape[0]
+                and self.k.shape[2:] == other.k.shape[2:]
+                and self.k.dtype == other.k.dtype)
+
     def export_session(self, session_id: str) -> Optional[Dict[str, Any]]:
         """Serialize a session's K/V pages (the migration payload; the
         page tensors are copied to host memory)."""

@@ -1,7 +1,8 @@
 """Kernel test cases shared by the port's CPU and card kernel tests.
 
 The cases cover the hazards of the kernels: permuted page tables, -1
-padding, ragged positions, partial tail pages, chunk lengths and sequence
+padding, ragged positions, partial tail pages, valid pages wholly past a
+sequence's length, chunk lengths and sequence
 lengths that are no multiple of any tile, a windowed and a non-causal
 attention, ring caches whose positions wrap past the cache length
 (twice), with windows below, at and above it, expert-FFN row counts and
@@ -51,6 +52,55 @@ PAGED_CASES = [
     (1, 2, 3, 2, 4, 32, 8, 24, 8),
     (2, 4, 8, 1, 2, 16, 4, 40, 9),
     (3, 2, 5, 2, 1, 32, 16, 12, 5),
+]
+
+
+def paged_decode_case(seed, B, Hkv, n_rep, D, P, n_pages, maxp, spare=0):
+    """One-token paged decode inputs: q [B,H,D], pools, ragged lengths in
+    [1, (maxp - spare) * P] (partial last pages), tables drawn as a random
+    permutation of the pool's pages and -1 padded, each row holding up to
+    ``spare`` further valid pages wholly past its length."""
+    rng = np.random.default_rng(seed)
+    H = Hkv * n_rep
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    kp = rng.standard_normal((n_pages, P, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, P, Hkv, D)).astype(np.float32)
+    lengths = rng.integers(1, (maxp - spare) * P + 1, B).astype(np.int32)
+    perm = rng.permutation(n_pages)
+    pt = np.full((B, maxp), -1, np.int32)
+    used = 0
+    for b in range(B):
+        need = -(-int(lengths[b]) // P) + int(rng.integers(0, spare + 1))
+        pt[b, :need] = perm[used:used + need]
+        used += need
+    assert used <= n_pages
+    return q, kp, vp, pt, lengths
+
+
+def paged_decode_sweep(seed):
+    """The reference's one-token paged decode sweep (tests/test_kernels.py):
+    B=3, 2 kv heads of 4 queries, D=64, 24 pages of 64, fixed -1 padded
+    tables and lengths 150, 300, 17; unit-normal inputs from ``seed``."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((3, 8, 64)).astype(np.float32)
+    kp = rng.standard_normal((24, 64, 2, 64)).astype(np.float32)
+    vp = rng.standard_normal((24, 64, 2, 64)).astype(np.float32)
+    pt = np.array([[3, 7, 11, -1, -1], [0, 1, 2, 4, 6],
+                   [5, -1, -1, -1, -1]], np.int32)
+    lengths = np.array([150, 300, 17], np.int32)
+    return q, kp, vp, pt, lengths
+
+
+PAGED_DECODE_CASES = [
+    # seed, B, Hkv, n_rep, D, P, n_pages, maxp, spare: the shapes of the
+    # reference's fuzz (pages of 4..16, D of 8..32, GQA groups of 1..4),
+    # with valid pages wholly past a row's length
+    (0, 1, 1, 1, 8, 4, 8, 3, 0),
+    (1, 4, 3, 4, 32, 16, 30, 5, 1),
+    (2, 3, 2, 2, 16, 8, 24, 6, 2),
+    (3, 2, 1, 4, 32, 4, 20, 8, 3),
+    (4, 4, 2, 1, 16, 16, 26, 4, 1),
+    (5, 2, 3, 3, 8, 8, 16, 7, 2),
 ]
 
 

@@ -230,3 +230,31 @@ def test_sample_draws_the_reference_distribution(temperature, top_k):
                   torch.Generator().manual_seed(0))
     emp = np.bincount(toks.numpy(), minlength=V) / trials
     assert 0.5 * np.abs(emp - want).sum() < 0.05
+
+
+def test_expired_requests_are_delivered(models):
+    """A request whose deadline has passed when it is admitted comes out of
+    ``poll_finished()`` with ``expired=True`` (the bridge resolves its
+    future ``DeadlineExceeded`` from there), beside a live request that
+    completes; the queue's clock is held at 0 so that submit accepts the
+    past deadline, as ``tests/test_failure_handling.py`` does."""
+    jmodel, jparams, tmodel, tparams = models
+    out = []
+    for eng, req_cls, samp in (
+            (JEngine(jmodel, jparams, **ENGINE_KW), JRequest, JSampling),
+            (TEngine(tmodel, tparams, device="cpu", **ENGINE_KW), TRequest,
+             TSampling)):
+        eng.queue.clock = lambda: 0.0
+        late = req_cls.make([1, 2, 3], deadline_wall=1.0,
+                            sampling=samp(max_new_tokens=2))
+        live = req_cls.make([4, 5, 6], sampling=samp(max_new_tokens=2))
+        eng.submit(late)
+        eng.submit(live)
+        eng.run_until_idle()
+        done = eng.poll_finished()
+        out.append(([("late" if r is late else "live", r.expired, r.finished)
+                     for r in done], list(map(int, live.generated)),
+                    late.generated, eng.metrics.expired,
+                    eng.metrics.completed, eng.poll_finished()))
+    assert out[1] == out[0]
+    assert out[1][0] == [("late", True, True), ("live", False, True)]

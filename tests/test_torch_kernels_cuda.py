@@ -22,16 +22,19 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (FLASH_CASES, MOE_CASES, PAGED_CASES, RGLRU_CASES,
-                          RING_CASES, SSD_CASES, moe_case, paged_case,
-                          rglru_case, ring_case, ssd_case)
+from _torch_cases import (FLASH_CASES, MOE_CASES, PAGED_CASES,
+                          PAGED_DECODE_CASES, RGLRU_CASES, RING_CASES,
+                          SSD_CASES, moe_case, paged_case, paged_decode_case,
+                          paged_decode_sweep, rglru_case, ring_case,
+                          ssd_case)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_bhsd_ref
 from repro_torch.kernels.moe_ffn import ops as moe_ops
 from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ref import (decode_ring_ref,
-                                                     paged_decode_chunk_ref)
+                                                     paged_decode_chunk_ref,
+                                                     paged_decode_ref)
 from repro_torch.kernels.rglru_scan import ops as scan_ops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
@@ -97,6 +100,115 @@ def test_paged_chunk_kernel_matches_plain(cuda_device, dtype, case):
     want = paged_decode_chunk_ref(q, kp, vp, pt, pos, scale=D ** -0.5,
                                   n_rep=n_rep)
     torch.testing.assert_close(got.float(), want.float(), **CARD_TOL[dtype])
+
+
+def _paged_decode_inputs(case):
+    """B3's inputs for a card case: the reference's sweep, PAGED_CASES at
+    T=1 (lengths = pos + 1), PAGED_DECODE_CASES (valid pages past the
+    length) and qwen3-0.6b's serving shapes (MAIN_PAGED_DECODE)."""
+    if case == "sweep":
+        return paged_decode_sweep(3) + (4,)
+    if len(case) == 9 and case in PAGED_CASES + [MAIN_PAGED]:
+        seed, B, _T, Hkv, n_rep, D, P, n_pages, maxp = case
+        q, kp, vp, pt, pos = paged_case(seed, B, 1, Hkv, n_rep, D, P,
+                                        n_pages, maxp)
+        return q[:, 0], kp, vp, pt, pos + 1, n_rep
+    seed, B, Hkv, n_rep, D, P, n_pages, maxp, spare = case
+    return paged_decode_case(seed, B, Hkv, n_rep, D, P, n_pages, maxp,
+                             spare) + (n_rep,)
+
+
+# qwen3-0.6b's one-token decode over a served pool: B=8, 8 kv heads of 2,
+# D=128, pages of 64 and a 16-entry table, two spare pages per row; and one
+# 8192-token sequence (128 pages) whose splits span many blocks
+MAIN_PAGED_DECODE = [(20, 8, 8, 2, 128, 64, 272, 16, 2),
+                     (21, 1, 8, 2, 128, 64, 130, 128, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["sweep"] + PAGED_CASES + [MAIN_PAGED]
+                         + PAGED_DECODE_CASES + MAIN_PAGED_DECODE)
+def test_paged_decode_kernel_matches_plain(cuda_device, dtype, case):
+    *arrs, n_rep = _paged_decode_inputs(case)
+    q, kp, vp = (torch.from_numpy(a).to(cuda_device, dtype) for a in arrs[:3])
+    pt, lengths = (torch.from_numpy(a).to(cuda_device) for a in arrs[3:])
+    scale = q.shape[-1] ** -0.5
+    n = paged_ops.paged_decode.launches
+    got = paged_ops.paged_decode(q, kp, vp, pt, lengths, scale=scale,
+                                 n_rep=n_rep)
+    torch.cuda.synchronize()
+    assert paged_ops.paged_decode.launches == n + 1
+    want = paged_decode_ref(q, kp, vp, pt, lengths, scale=scale, n_rep=n_rep)
+    torch.testing.assert_close(got.float(), want.float(), **CARD_TOL[dtype])
+    # the same function as the paged chunk kernel at T=1, pos = lengths - 1
+    chunk = paged_ops.paged_decode_chunk(q[:, None].contiguous(), kp, vp, pt,
+                                         lengths - 1, scale=scale,
+                                         n_rep=n_rep)[:, 0]
+    torch.testing.assert_close(got.float(), chunk.float(), **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_kernels_launch_from_concurrent_threads(cuda_device):
+    """Two threads (two engines' pump threads) launch the paged kernels at
+    once with different shared-memory needs (B1 at T=1 and T=8, B3): every
+    launch succeeds and gives the single-threaded result."""
+    import threading
+
+    cases = []
+    for T in (1, 8):
+        arrs = paged_case(30 + T, 4, T, 2, 2, 64, 16, 40, 8)
+        q, kp, vp = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                     for a in arrs[:3])
+        pt, pos = (torch.from_numpy(a).to(cuda_device) for a in arrs[3:])
+        cases.append((q, kp, vp, pt, pos))
+    args = dict(scale=0.125, n_rep=2)
+    calls = [lambda c=c: paged_ops.paged_decode_chunk(*c, **args)
+             for c in cases]
+    calls.append(lambda c=cases[0]: paged_ops.paged_decode(
+        c[0][:, 0].contiguous(), c[1], c[2], c[3], c[4] + 1, **args))
+    want = [f() for f in calls]
+    torch.cuda.synchronize()
+    errors = []
+
+    def hammer(order):
+        try:
+            for _ in range(200):
+                for i in order:
+                    got = calls[i]()
+                    torch.cuda.current_stream().synchronize()
+                    assert torch.equal(got, want[i])
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=hammer, args=(o,))
+               for o in ((0, 1, 2), (1, 2, 0))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+
+
+@pytest.mark.cuda
+def test_paged_decode_kernel_skips_pages_it_cannot_see(cuda_device):
+    """Pool slots no row can see hold inf and NaN: the split kernel never
+    reads them, and a split whose pages all lie past the length weighs 0."""
+    q, kp, vp, pt, lengths = paged_decode_case(22, 4, 2, 2, 64, 16, 40, 8, 3)
+    seen = np.zeros(kp.shape[:2], bool)
+    for b in range(4):
+        for tok in range(int(lengths[b])):
+            seen[pt[b, tok // 16], tok % 16] = True
+    dev = cuda_device
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    args = dict(scale=0.125, n_rep=2)
+    base = paged_ops.paged_decode(t(q), t(kp), t(vp), t(pt), t(lengths),
+                                  **args)
+    kp[~seen], vp[~seen] = np.inf, np.nan
+    got = paged_ops.paged_decode(t(q), t(kp), t(vp), t(pt), t(lengths),
+                                 **args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, base) and bool(torch.isfinite(got).all())
 
 
 @pytest.mark.cuda
@@ -268,6 +380,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="int32"):
         paged_ops.paged_decode_chunk(q.float(), kp.float(), kp.float(),
                                      pt.long(), pos, scale=1.0, n_rep=2)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        paged_ops.paged_decode(q[:, 0].contiguous(), kp, kp, pt, pos,
+                               scale=1.0, n_rep=2)
+    with pytest.raises(ValueError, match="head dim"):
+        paged_ops.paged_decode(
+            torch.zeros(1, 2, 36, device=cuda_device, dtype=torch.bfloat16),
+            torch.zeros(2, 8, 1, 36, device=cuda_device, dtype=torch.bfloat16),
+            torch.zeros(2, 8, 1, 36, device=cuda_device, dtype=torch.bfloat16),
+            pt[:1], pos[:1], scale=1.0, n_rep=2)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros(2, 512, 1, 256, device=cuda_device)
+        paged_ops.paged_decode(torch.zeros(1, 2, 256, device=cuda_device),
+                               big, big, pt[:1], pos[:1], scale=1.0, n_rep=2)
     x = torch.zeros(2, 8, 264, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         flash_ops.flash_attention_bhsd(x, x, x)
