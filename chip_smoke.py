@@ -10,10 +10,13 @@ the run with a non-zero exit and no result line:
              csrc/`` (one ``nvcc`` per source, all at once).
 2. kernels — hold each kernel against its plain PyTorch version on the card
              in bf16 at the shapes of the path that runs it (the expert
-             FFN also bitwise across row counts; the SSD chunk scan also in
+             FFN also bitwise across row counts, the flash kernel's rows
+             bitwise across sequence lengths; the SSD chunk scan also in
              float32, and against the token-by-token recurrence), and time
              kernel, plain version and a PyTorch yardstick (``library_ms``,
-             never used by the port) against the card's bound.
+             never used by the port) against the card's bound; the timed
+             flash and expert-FFN rows name their tensor-core design and
+             ptxas's registers and spills.
 3. serve   — qwen3-0.6b at full width (random weights from a seed) served by
              the port's paged ``InferenceEngine``: 16 requests with
              follow-up turns and a shared system prompt (timed), a third
@@ -83,6 +86,7 @@ limit (``nvidia-smi``), and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -305,12 +309,64 @@ def moe_cost(E, C, D, F):
 
 
 # ----------------------------------------------------------------- phases
+# ptxas's report (-Xptxas -v) of every kernel built in this run, by mangled
+# name: {"regs": registers a thread, "spill": (store bytes, load bytes)}
+PTXAS = {}
+
+
+def ptxas_usage(log):
+    usage, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            usage[fn] = {}
+        elif fn is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                usage[fn]["spill"] = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                usage[fn]["regs"] = int(m.group(1))
+    return usage
+
+
+def ptxas_tag(*symbols):
+    """Registers and spills of the built kernels whose mangled names hold
+    each of ``symbols``."""
+    tags = []
+    for sym in symbols:
+        for name, u in PTXAS.items():
+            if sym in name:
+                st, ld = u.get("spill", ("?", "?"))
+                tags.append(f"{sym}: {u.get('regs', '?')} registers, "
+                            f"spill {st}/{ld} bytes")
+    return "; ".join(tags) or "ptxas: not built in this run"
+
+
+def flash_design(D):
+    """The bf16 flash kernel's tiles at head dim D (flash_attention.cu)."""
+    dmax = next(w for w in (64, 128, 256) if D <= w)
+    where = "registers" if dmax <= 128 else "shared memory"
+    keys = 64 if dmax <= 128 else 32
+    return (f"design=mma.sync m16n8k16 bf16, 64 q-rows x {keys} keys, "
+            f"d-tile {dmax}, Q in {where}, 2-stage cp.async "
+            f"[{ptxas_tag(f'flash_tc_kernelILi{dmax}E')}]")
+
+
+MOE_DESIGN = ("design=mma.sync m16n8k16 bf16, gate/up 64x64 tiles, down "
+              "64x128 tiles over all F with h split hi+lo, k-chunks of 64 "
+              "in 3 cp.async stages")
+
+
 def phase_build(_build):
     t0 = time.perf_counter()
     built = _build.build_all()
     wall = time.perf_counter() - t0
     for name, (secs, log) in built.items():
         print(f"[build] {name}: {secs:.1f} s")
+        PTXAS.update(ptxas_usage(log))
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
@@ -485,8 +541,10 @@ def flash_rows(torch, timer, flash_ops, flash_ref, tag, H, D, seed,
     """The flash kernel at BH=H, head dim D, bf16, causal: at each (S,
     window, timed) of ``cases`` held against its plain version, and where
     ``timed`` timed beside it and SDPA (``is_causal`` without a window, a
-    boolean mask with one).  Returns the largest difference and the
-    timings by (S, window)."""
+    boolean mask with one), and its first 300 rows held bitwise equal to
+    an S=300 launch over the first 300 positions (a row's output does not
+    depend on the sequence's length).  Returns the largest difference and
+    the timings by (S, window)."""
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(seed)
     scale = D ** -0.5
@@ -509,6 +567,14 @@ def flash_rows(torch, timer, flash_ops, flash_ref, tag, H, D, seed,
         err = max(err, e)
         if not timed:
             continue
+        head = flash_ops.flash_attention_bhsd(
+            *(x[:, :300].contiguous() for x in (q, k, v)), causal=True,
+            window=window, scale=scale)
+        check(torch.equal(head, got[:, :300]),
+              f"flash_attention_bhsd rows 0..299 of the S={S} launch differ "
+              f"from an S=300 launch (window={window}, D={D})")
+        print(f"[{tag}] flash_attention_bhsd S={S} window={window} D={D}: "
+              f"rows 0..299 equal, bitwise, an S=300 launch")
         n_bytes, flops = flash_cost(H, S, D, window)
         bound, by = bound_ms(n_bytes, flops)
         q4, k4, v4 = (x[None] for x in (q, k, v))
@@ -529,7 +595,8 @@ def flash_rows(torch, timer, flash_ops, flash_ref, tag, H, D, seed,
         print(f"[{tag}] flash_attention_bhsd timed BH={H} S={S} D={D} "
               f"window={window}: ms={t['ms']:.4f} plain_ms="
               f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} (SDPA) "
-              f"bound_ms={bound:.5f} ({by}; {n_bytes} B, {flops} flop)")
+              f"bound_ms={bound:.5f} ({by}; {n_bytes} B, {flops} flop) "
+              f"{flash_design(D)}")
     return err, timings
 
 
@@ -655,10 +722,12 @@ def moe_kernel_rows(torch, timer, moe_ops, moe_ref, cfg):
              "library_ms": timer.ms(library),
              "bound_ms": bound, "bound_by": by}
         timings[C] = t
+        usage = ptxas_tag("moe_gate_up_kernel", "moe_down_kernel")
         print(f"[kernels] moe_ffn timed E={E} C={C} D={D} F={Fe} (token "
               f"block expanded): ms={t['ms']:.4f} plain_ms="
               f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
-              f"bound_ms={bound:.5f} ({by}; {n_bytes} B, {flops} flop)")
+              f"bound_ms={bound:.5f} ({by}; {n_bytes} B, {flops} flop) "
+              f"{MOE_DESIGN} [{usage}]")
     return dict(source="src/repro_torch/csrc/moe_ffn.cu",
                 replaces="src/repro/kernels/moe_ffn/moe_ffn.py:50",
                 max_abs_err=err, **timings[64])

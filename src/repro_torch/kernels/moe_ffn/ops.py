@@ -2,7 +2,8 @@
 
 A CUDA tensor launches the hand-written kernel and the call raises if it
 cannot; a CPU tensor takes the plain version in :mod:`.ref`.  Nothing else
-chooses between them.  ``moe_ffn.launches`` counts the kernel's launches.
+chooses between them.  ``moe_ffn.launches`` counts the calls that launched
+the kernel (in bf16 one call is two launches: gate/up, then down).
 """
 
 from __future__ import annotations
@@ -16,14 +17,18 @@ from .. import _build
 from .ref import moe_ffn_ref
 
 _SMEM_LIMIT = 232_448     # bytes of shared memory a block may use (H100)
-MOE_BLOCK_ROWS = 16       # token rows per block (must match the kernel)
+MOE_BLOCK_ROWS = 16       # token rows per block of the f32 kernel
+# the bf16 kernels' largest block (the down product): 3 stages of an f32 h
+# tile [64, 64 + 8] and a bf16 w_down tile [64, 128 + 8]; no term grows
+# with C, D or F
+_BF16_SMEM = 3 * (4 * 64 * 72 + 2 * 64 * 136)
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     lib = _build.load("moe_ffn")
     fn = lib.moe_ffn_forward
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.moe_ffn_error_string.argtypes = [ctypes.c_int]
@@ -31,10 +36,12 @@ def _kernel():
     return fn, lib.moe_ffn_error_string
 
 
-def _smem_bytes(F: int) -> int:
-    """Dynamic shared memory of one block (must match the kernel): h
-    [F, 16] plus the staged x [16, 16] and w_gate / w_up [16, 256]
-    sub-tiles, all f32."""
+def _smem_bytes(F: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block (must match the kernel).  bf16:
+    the tensor-core kernels' fixed tiles.  f32: h [F, 16] plus the staged
+    x [16, 16] and w_gate / w_up [16, 256] sub-tiles, all f32."""
+    if dtype == torch.bfloat16:
+        return _BF16_SMEM
     return 4 * (F * MOE_BLOCK_ROWS + 16 * MOE_BLOCK_ROWS + 2 * 16 * 256)
 
 
@@ -80,7 +87,7 @@ def moe_ffn(xe: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                                  (xe, w_gate, w_up, w_down)):
         raise ValueError(f"d_model and d_expert must be multiples of {vec} "
                          f"and the tensors 16-byte aligned")
-    smem = _smem_bytes(F)
+    smem = _smem_bytes(F, xe.dtype)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"d_expert={F} needs {smem} bytes of shared memory "
                          f"(limit {_SMEM_LIMIT})")
@@ -89,11 +96,17 @@ def moe_ffn(xe: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         return out
     fn, err_str = _kernel()
     x_stride = 0 if E > 1 and xe.stride(0) == 0 else C * D
+    bf16 = xe.dtype == torch.bfloat16
+    # h = silu(x @ w_gate) * (x @ w_up), f32, between the bf16 path's two
+    # launches; the f32 kernel keeps its h in shared memory
+    h = torch.empty((E, C, F), dtype=torch.float32,
+                    device=xe.device) if bf16 else None
     with torch.cuda.device(xe.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xe.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-                 w_down.data_ptr(), out.data_ptr(), E, C, D, F, x_stride,
-                 int(xe.dtype == torch.bfloat16), stream)
+                 w_down.data_ptr(), out.data_ptr(),
+                 None if h is None else h.data_ptr(), E, C, D, F, x_stride,
+                 int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"moe_ffn launch failed: {err_str(err).decode()} "
                            f"(cuda error {err})")

@@ -9,7 +9,8 @@ Tolerances: f32 1e-5 (summation order only); bf16 1e-2 absolute and
 relative (both sides round the output to bf16 once; the flash kernel also
 rounds its probabilities to bf16 before P.V, as its plain version does).
 The expert-FFN kernel's rows must also be bitwise independent of how many
-rows are launched with them.  The SSD chunk scan is held relative to the
+rows are launched with them, and a causal flash launch's rows of how long
+its sequence is.  The SSD chunk scan is held relative to the
 largest reference value: y within 1e-2 in bf16 (the plain version also
 rounds the scores, the decayed score matrix and dt to bf16, the kernel
 only y) and 1e-3 in float32, against the plain version and against the
@@ -51,6 +52,17 @@ MAIN_FLASH = (9, 16, 500, 500, 128, True, None)
 MAIN_FLASH_256 = [(12, 16, 512, 512, 256, True, 2048),
                   (13, 16, 512, 512, 256, True, 128),
                   (14, 3, 77, 77, 256, True, 9)]
+# the tensor-core tiles' edges: granite's D=64; D=40 and 72, which zero-pad
+# the 64- and 128-wide d-tiles; Sq != Skv without a mask, both ways; a
+# window whose edge falls inside a 64-key tile; BH=1 and BH=48
+FLASH_TILE_EDGES = [(40, 4, 200, 200, 64, True, None),
+                    (41, 2, 130, 130, 40, True, None),
+                    (42, 2, 130, 130, 72, True, 50),
+                    (43, 3, 70, 150, 64, False, None),
+                    (44, 3, 150, 70, 128, False, None),
+                    (45, 2, 300, 300, 128, True, 100),
+                    (46, 1, 256, 256, 128, True, None),
+                    (47, 48, 128, 128, 128, True, 37)]
 # decode_step's ring at full width: B=8, a 1024-slot cache, 8 kv heads of
 # 2 queries, D=128; no window, and a 256-slot ring with a 256 window
 MAIN_RING = [(9, 8, 1024, 8, 2, 128, None), (10, 8, 256, 8, 2, 128, 256)]
@@ -64,6 +76,11 @@ MAIN_RING_256 = [(15, 8, 1024, 1, 16, 256, 2048),
 # whose D (40) and F (24) are no multiple of the kernel's sub-tiles
 MAIN_MOE = [(9, 32, 64, 1024, 512), (10, 32, 37, 1024, 512),
             (11, 3, 5, 40, 24)]
+# the bf16 kernels' 64-row and 64/128-column tiles: C=1, and C=65 and 200,
+# which span more than one row tile; F=24 and 96, no multiple of the
+# 64-column tile; E=1; D=72, no multiple of the 64-deep k-chunk
+MOE_TILE_EDGES = [(50, 4, 1, 64, 128), (51, 3, 65, 128, 96),
+                  (52, 2, 200, 96, 24), (53, 1, 130, 72, 64)]
 # mamba2-130m's prefill at full width (24 heads, P=64, N=128, chunk 256):
 # the bucket of a 257..512-token admission, a ragged 300 with initial
 # states at B=2; and chunks of 16 (the smoke config's) over a ragged 100
@@ -150,9 +167,11 @@ def test_paged_decode_kernel_matches_plain(cuda_device, dtype, case):
 
 @pytest.mark.cuda
 def test_kernels_launch_from_concurrent_threads(cuda_device):
-    """Two threads (two engines' pump threads) launch the paged kernels at
-    once with different shared-memory needs (B1 at T=1 and T=8, B3): every
-    launch succeeds and gives the single-threaded result."""
+    """Two threads (two engines' pump threads) launch the kernels at once
+    with different shared-memory needs (B1 at T=1 and T=8, B3; the flash
+    kernel at head dims 32 and 256; the expert FFN in bf16 and in f32 at
+    d_expert 2048): every launch succeeds and gives the single-threaded
+    result."""
     import threading
 
     cases = []
@@ -167,6 +186,15 @@ def test_kernels_launch_from_concurrent_threads(cuda_device):
              for c in cases]
     calls.append(lambda c=cases[0]: paged_ops.paged_decode(
         c[0][:, 0].contiguous(), c[1], c[2], c[3], c[4] + 1, **args))
+    rng = np.random.default_rng(32)
+    for D in (32, 256):
+        qkv = [torch.from_numpy(rng.standard_normal((2, 70, D)).astype(
+            np.float32)).to(cuda_device, torch.bfloat16) for _ in range(3)]
+        calls.append(lambda qkv=qkv: flash_ops.flash_attention_bhsd(*qkv))
+    for dtype, case in ((torch.bfloat16, (33, 2, 9, 64, 128)),
+                        (torch.float32, (34, 1, 3, 32, 2048))):
+        moe = _moe_inputs(case, cuda_device, dtype, False)
+        calls.append(lambda moe=moe: moe_ops.moe_ffn(*moe))
     want = [f() for f in calls]
     torch.cuda.synchronize()
     errors = []
@@ -181,8 +209,9 @@ def test_kernels_launch_from_concurrent_threads(cuda_device):
         except BaseException as e:  # noqa: BLE001 — reported below
             errors.append(e)
 
+    order = list(range(len(calls)))
     threads = [threading.Thread(target=hammer, args=(o,))
-               for o in ((0, 1, 2), (1, 2, 0))]
+               for o in (order, order[1:] + order[:1])]
     for t in threads:
         t.start()
     for t in threads:
@@ -214,7 +243,7 @@ def test_paged_decode_kernel_skips_pages_it_cannot_see(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", FLASH_CASES + [MAIN_FLASH]
-                         + MAIN_FLASH_256)
+                         + MAIN_FLASH_256 + FLASH_TILE_EDGES)
 def test_flash_kernel_matches_plain(cuda_device, dtype, case):
     seed, BH, Sq, Skv, D, causal, window = case
     rng = np.random.default_rng(seed)
@@ -227,6 +256,26 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, case):
     assert flash_ops.flash_attention_bhsd.launches == n + 1
     want = flash_attention_bhsd_ref(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D, window", [(128, None), (256, 2048), (64, 100)])
+def test_flash_rows_do_not_depend_on_the_sequence_length(cuda_device, dtype,
+                                                         D, window):
+    """Under a causal mask the rows of an S=512 launch equal, bitwise, the
+    same rows of an S=300 launch over the first 300 positions: a row's
+    keys are visited in the same tiles in the same order."""
+    rng = np.random.default_rng(48)
+    q, k, v = (torch.from_numpy(rng.standard_normal((4, 512, D)).astype(
+        np.float32)).to(cuda_device, dtype) for _ in range(3))
+    full = flash_ops.flash_attention_bhsd(q, k, v, causal=True,
+                                          window=window)
+    head = flash_ops.flash_attention_bhsd(
+        *(x[:, :300].contiguous() for x in (q, k, v)), causal=True,
+        window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(head, full[:, :300])
 
 
 @pytest.mark.cuda
@@ -292,7 +341,7 @@ def _moe_inputs(case, device, dtype, expanded):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("expanded", [False, True])
-@pytest.mark.parametrize("case", MOE_CASES + MAIN_MOE)
+@pytest.mark.parametrize("case", MOE_CASES + MAIN_MOE + MOE_TILE_EDGES)
 def test_moe_ffn_kernel_matches_plain(cuda_device, dtype, expanded, case):
     args = _moe_inputs(case, cuda_device, dtype, expanded)
     n = moe_ops.moe_ffn.launches
@@ -317,6 +366,24 @@ def test_moe_ffn_rows_do_not_depend_on_the_batch(cuda_device, dtype):
             part = moe_ops.moe_ffn(x[c0:c0 + width].expand(E, width, D),
                                    wg, wu, wd)
             assert torch.equal(part, full[:, c0:c0 + width]), (width, c0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_rows_do_not_depend_on_the_row_tile(cuda_device, dtype):
+    """The rows of a 200-row launch (four 64-row tiles, the last ragged)
+    equal, bitwise, the same rows launched alone and as one 65-row launch
+    that starts mid-tile."""
+    xe, wg, wu, wd = _moe_inputs(MOE_TILE_EDGES[2], cuda_device, dtype,
+                                 False)
+    E, C, D = xe.shape
+    x = xe[0]
+    full = moe_ops.moe_ffn(x.expand(E, C, D), wg, wu, wd)
+    for c0 in (0, 63, 64, 130, 199):
+        part = moe_ops.moe_ffn(x[c0:c0 + 1].expand(E, 1, D), wg, wu, wd)
+        assert torch.equal(part, full[:, c0:c0 + 1]), c0
+    part = moe_ops.moe_ffn(x[100:165].expand(E, 65, D), wg, wu, wd)
+    assert torch.equal(part, full[:, 100:165])
 
 
 def _ssd_inputs(case, device, dtype):
