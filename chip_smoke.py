@@ -11,12 +11,13 @@ the run with a non-zero exit and no result line:
 2. kernels — hold each kernel against its plain PyTorch version on the card
              in bf16 at the shapes of the path that runs it (the expert
              FFN also bitwise across row counts, the flash kernel's rows
-             bitwise across sequence lengths; the SSD chunk scan also in
-             float32, and against the token-by-token recurrence), and time
-             kernel, plain version and a PyTorch yardstick (``library_ms``,
-             never used by the port) against the card's bound; the timed
-             flash and expert-FFN rows name their tensor-core design and
-             ptxas's registers and spills.
+             bitwise across sequence lengths, the SSD chunk scan's across
+             batch sizes; the SSD chunk scan also in float32, and against
+             the token-by-token recurrence), and time kernel, plain version
+             and a PyTorch yardstick (``library_ms``, never used by the
+             port) against the card's bound; the timed flash, expert-FFN,
+             SSD and RG-LRU rows name their design and each launch's
+             ptxas registers and spills.
 3. serve   — qwen3-0.6b at full width (random weights from a seed) served by
              the port's paged ``InferenceEngine``: 16 requests with
              follow-up turns and a shared system prompt (timed), a third
@@ -52,7 +53,9 @@ the run with a non-zero exit and no result line:
              the serve trace on a ``prefill_chunk=0`` engine (24 chunk-scan
              launches per admission) and on a ``prefill_chunk=8`` engine
              (the fused recurrent step, no launch), each timed and with a
-             profiled wave; a ``warm_session`` (24 launches) and
+             profiled wave, and a profiled step that admits two requests on
+             the first (the chunk scan's device time per admission); a
+             ``warm_session`` (24 launches) and
              ``export_session`` -> ``import_session`` onto the other
              engine.  Then prefill and ``decode_step`` logits of two
              prompts, card bf16 and float32 against the CPU in float32;
@@ -68,7 +71,9 @@ the run with a non-zero exit and no result line:
              256, over wrapped rings.  Then the serve trace in bf16 on a
              ``prefill_chunk=0`` engine (26 scan and 12 flash launches per
              admission) and a ``prefill_chunk=8`` one (neither), 12 ring
-             launches per single step on both, each with a profiled wave; a
+             launches per single step on both, a profiled wave and a
+             profiled step that admits two requests on the first (the scan's
+             and the flash kernel's device time per admission); a
              ``warm_session`` and a session moved between the engines.
              Then the five-layer cut (one group and the two tail layers)
              against the CPU (card float32 within 1e-3, card bf16 within the
@@ -358,6 +363,23 @@ def flash_design(D):
 MOE_DESIGN = ("design=mma.sync m16n8k16 bf16, gate/up 64x64 tiles, down "
               "64x128 tiles over all F with h split hi+lo, k-chunks of 64 "
               "in 3 cp.async stages")
+SSD_DESIGN = ("design=chunk-parallel, 4 launches: C.B^T once per (b, chunk) "
+              "in 64x64 tiles; chunk states per (b, chunk, head); the state "
+              "pass over chunks; y per (b, chunk, head, 64 rows); ")
+SSD_PRODUCTS = {"bfloat16": "mma.sync m16n8k16 bf16 with the f32 operands "
+                            "(w x, S_in, the decayed scores) split hi+lo",
+                "float32": "fmaf chains on the CUDA cores"}
+RGLRU_DESIGN = ("design=one warp of 32 channels a block, 32-step tiles of a "
+                "and b in 4 cp.async stages, __fmul_rn/__fadd_rn in order, y "
+                "staged in shared memory and written as 16-byte rows")
+
+
+def ssd_design(name):
+    """The chunk scan's design and each launch's registers and spills."""
+    t = "I13__nv_bfloat16" if name == "bfloat16" else "IfE"
+    usage = ptxas_tag(f"ssd_cb_kernel{t}", f"ssd_state_kernel{t}",
+                      f"ssd_pass_kernel{t}", f"ssd_out_kernel{t}")
+    return f"{SSD_DESIGN}{SSD_PRODUCTS[name]} [{usage}]"
 
 
 def phase_build(_build):
@@ -733,14 +755,14 @@ def moe_kernel_rows(torch, timer, moe_ops, moe_ref, cfg):
                 max_abs_err=err, **timings[64])
 
 
-def ssd_cost(B, S, H, P, N, Q):
-    """Bytes and flops of one chunk scan (bf16 x, B, C and y; f32 dt, A and
-    final state): each input read once, each output written once; per
-    (b, h, chunk of Qc steps) the lower triangle of C.B^T over N and of the
-    decayed scores times dt.x over P, Qc(Qc+1)/2 (N + P) multiply-adds, and
-    C.S and the state update, 2 Qc N P."""
-    n_bytes = (2 * 2 * B * S * H * P + 4 * B * S * H + 4 * H
-               + 2 * 2 * B * S * N + 4 * B * H * P * N)
+def ssd_cost(B, S, H, P, N, Q, itemsize=2):
+    """Bytes and flops of one chunk scan (x, B, C and y of ``itemsize``
+    bytes; f32 dt, A and final state): each input read once, each output
+    written once; per (b, h, chunk of Qc steps) the lower triangle of C.B^T
+    over N and of the decayed scores times dt.x over P, Qc(Qc+1)/2 (N + P)
+    multiply-adds, and C.S and the state update, 2 Qc N P."""
+    n_bytes = (2 * itemsize * B * S * H * P + 4 * B * S * H + 4 * H
+               + 2 * itemsize * B * S * N + 4 * B * H * P * N)
     macs = 0
     for s0 in range(0, S, Q):
         q = min(Q, S - s0)
@@ -755,8 +777,10 @@ def ssd_kernel_rows(torch, timer, ssd_ops, ssd_ref, cfg):
     shapes the engine gives it (B=1 at the buckets 512 and 1024, and B=8 at
     512, the model API's batch), against the plain version; in float32 at
     B=1, S=512 and at a ragged B=2, S=300 with initial states, against the
-    plain version and the token-by-token recurrence.  Timed in bf16 at the
-    three shapes."""
+    plain version and the token-by-token recurrence.  Every row of the B=8
+    launch (and of the B=2 one) equals, bitwise, the same row launched at
+    B=1.  Timed in bf16 at the three shapes, and in float32 at B=1, S=512
+    (the precision witness: printed, no bar)."""
     F = torch.nn.functional
     H, P, N, Q = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
         cfg.ssm_chunk
@@ -806,20 +830,38 @@ def ssd_kernel_rows(torch, timer, ssd_ops, ssd_ref, cfg):
               and bool(torch.isfinite(final).all()),
               f"ssd_chunk_scan disagrees with its plain version (B={B}, "
               f"S={S}, {dtype})")
-        if dtype == torch.bfloat16:
-            err = max(err, e)
-            n_bytes, flops = ssd_cost(B, S, H, P, N, Q)
-            bound, by = bound_ms(n_bytes, flops)
+        if B > 1:
+            x, dt, _, Bm, Cm = args
+            for b in range(B):
+                yb, fb = ssd_ops.ssd_chunk_scan(
+                    x[b:b + 1], dt[b:b + 1], A, Bm[b:b + 1], Cm[b:b + 1],
+                    chunk=Q, init_state=None if h0 is None else h0[b:b + 1])
+                check(torch.equal(yb, y[b:b + 1])
+                      and torch.equal(fb, final[b:b + 1]),
+                      f"ssd_chunk_scan row {b} of the B={B}, S={S} {name} "
+                      f"launch differs from the same row launched alone")
+            print(f"[kernels] ssd_chunk_scan: the {B} rows of the B={B}, "
+                  f"S={S} {name} launch equal, bitwise, the same rows "
+                  f"launched at B=1 (y and the final state)")
+        if dtype == torch.bfloat16 or (B, S) == (1, 512):
+            n_bytes, flops = ssd_cost(B, S, H, P, N, Q, dtype.itemsize)
+            bound, by = bound_ms(n_bytes, flops, BF16_FLOP_PER_S
+                                 if dtype == torch.bfloat16
+                                 else F32_FLOP_PER_S)
             t = {"ms": timer.ms(lambda: ssd_ops.ssd_chunk_scan(
                      *args, chunk=Q)),
                  "plain_ms": timer.ms(lambda: ssd_ref.ssd_chunked_ref(
                      *args, Q)),
                  "library_ms": None, "bound_ms": bound, "bound_by": by}
-            timed[B, S] = t
-            print(f"[kernels] ssd_chunk_scan timed B={B} S={S}: ms="
+            if dtype == torch.bfloat16:
+                err = max(err, e)
+                timed[B, S] = t
+            print(f"[kernels] ssd_chunk_scan timed B={B} S={S} {name}: ms="
                   f"{t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms="
                   f"none (no PyTorch call computes the scan) bound_ms="
-                  f"{bound:.5f} ({by}; {n_bytes} B, {flops} flop)")
+                  f"{bound:.5f} ({by}; {n_bytes} B, {flops} flop)"
+                  f"{'' if dtype == torch.bfloat16 else ' (no bar)'} "
+                  f"{ssd_design(name)}")
     return dict(source="src/repro_torch/csrc/ssd.cu",
                 replaces="src/repro/kernels/ssd/ssd.py:75",
                 max_abs_err=err, **timed[1, 512])
@@ -906,6 +948,52 @@ def profile_window(torch, engine, cfg, Request, sampling, n_warm=4,
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms "
               f"{e.count:6d}x  {e.key[:90]}")
+
+
+def admission_window(torch, engine, cfg, Request, sampling, tag, kernels):
+    """Two fresh requests (prompts of 300 and 450 tokens, bucket 512) on
+    the idle ``prefill_chunk=0`` engine: the step that admits them, a
+    monolithic prefill each, runs under ``torch.profiler``.  Prints the
+    step's host wall and device time and, per admission, the device time
+    and launches of the kernels whose names hold one of ``kernels``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(5)
+    reqs = [Request.make(rng.integers(0, cfg.vocab_size, n),
+                         session_id=f"admit{i}", sampling=sampling)
+            for i, n in enumerate((300, 450))]
+    engine.run_until_idle()
+    for r in reqs:
+        engine.submit(r)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    engine.run_until_idle()
+    check(all(r.finished and r.prefix_reused_tokens == 0 for r in reqs),
+          f"{tag}: an admission-window request did not finish cold")
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    if not events:
+        print(f"[{tag}] admission window: the trace holds no device events: "
+              f"not measured")
+        return
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    mine = [e for e in events if any(k in e.key for k in kernels)]
+    n = len(reqs)
+    scan_ms = sum(e.self_device_time_total for e in mine) / 1e3
+    print(f"[{tag}] admission window: one step admitting {n} requests "
+          f"(bucket 512, a monolithic prefill each) in {wall_ms:.1f} ms host "
+          f"wall, device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}"
+          f" %); {'/'.join(kernels)} kernels {scan_ms / n:.3f} ms and "
+          f"{sum(e.count for e in mine) / n:.0f} launches per admission")
+    for e in sorted(mine, key=lambda e: -e.self_device_time_total):
+        print(f"[{tag}]   {e.self_device_time_total / 1e3 / n:8.3f} ms "
+              f"{e.count / n:5.0f}x per admission  {e.key[:80]}")
 
 
 def phase_serve(torch, rt, cfg, counters):
@@ -1847,6 +1935,9 @@ def ssm_serve(torch, rt, model, params, counters, tally, prefill_chunk):
           f"widths {widths}; launches {launches}")
     profile_window(torch, engine, cfg, Request,
                    SamplingParams(max_new_tokens=16))
+    if prefill_chunk == 0:
+        admission_window(torch, engine, cfg, Request,
+                         SamplingParams(max_new_tokens=4), "ssm", ("ssd_",))
     return engine, reqs, launches["ssd_chunk_scan"]
 
 
@@ -2118,7 +2209,8 @@ def hybrid_kernel_rows(torch, timer, scan_ops, scan_ref, flash_ops,
               f"{t['ms']:.4f} plain_ms={t['plain_ms']:.4f} library_ms=none "
               f"(no PyTorch call computes the recurrence) bound_ms="
               f"{bound:.5f} ({by}; {n_bytes} B, {flops} flop; "
-              f"{B * W} threads)")
+              f"{B * -(-W // 32)} blocks of 32 channels) {RGLRU_DESIGN} "
+              f"[{ptxas_tag('rglru_scan_kernel')}]")
 
     flash_rows(torch, timer, flash_ops, flash_ref, "hybrid", H, D, seed=19,
                cases=((512, win, True), (512, 128, True)))
@@ -2210,6 +2302,10 @@ def hybrid_serve(torch, rt, model, params, counters, tally, prefill_chunk,
     if profile:
         profile_window(torch, engine, cfg, Request,
                        SamplingParams(max_new_tokens=16))
+        if prefill_chunk == 0:
+            admission_window(torch, engine, cfg, Request,
+                             SamplingParams(max_new_tokens=4), "hybrid",
+                             ("rglru_scan", "flash_"))
     return engine, reqs, launches
 
 

@@ -72,6 +72,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ptx_sm90.cuh"
+
 namespace {
 
 // The kernel's dynamic shared memory limit is set to the card's per-block
@@ -318,55 +320,6 @@ constexpr int WS2 = BN2 + 8;    // bf16 per staged w_down row
 constexpr int kStage2 = 4 * BM * HS + 2 * BK * WS2;
 constexpr int kSmem2 = kStages * kStage2;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !ok (no byte
-// is read then, and src is only a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c[16x8] += a[16x16] . b[16x8], bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Lane offsets of the ldmatrix addresses.  A (row major, not transposed):
 // row l % 16, column 8 * (l / 16).  B from a [k, n] row-major tile
 // (transposed): row (l % 8) + 8 * ((l / 8) % 2), column 8 * (l / 16); the
@@ -588,10 +541,7 @@ moe_down_kernel(const float* __restrict__ h,
           const int r = wm + mi * 16 + g + (i & 1) * 8;
           const int c = ks * 16 + (i >> 1) * 8 + 2 * t;
           const float2 hv = *reinterpret_cast<const float2*>(hs + r * HS + c);
-          const __nv_bfloat162 big = __floats2bfloat162_rn(hv.x, hv.y);
-          hi[mi][i] = as_u32(big);
-          lo[mi][i] = as_u32(__floats2bfloat162_rn(
-              hv.x - __low2float(big), hv.y - __high2float(big)));
+          split(hv.x, hv.y, hi[mi][i], lo[mi][i]);
         }
       }
 #pragma unroll

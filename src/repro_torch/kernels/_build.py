@@ -4,8 +4,9 @@ Each source under ``repro_torch/csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface, loaded
 with ctypes.  Builds happen at first use, from the checkout's own sources,
 into ``build/repro_torch_kernels/`` at the repository root; a library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and a stale library is never loaded.  ``build_all`` starts one
+file name carries a hash of its source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source or header is rebuilt and a stale
+library is never loaded.  ``build_all`` starts one
 ``nvcc`` per source, all at once, and waits for them.
 """
 
@@ -57,6 +58,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -2,8 +2,8 @@
 
 A CUDA tensor launches the hand-written kernel and the call raises if it
 cannot; a CPU tensor takes the plain version in :mod:`.ref`.  Nothing else
-chooses between them.  ``ssd_chunk_scan.launches`` counts the kernel's
-launches.
+chooses between them.  ``ssd_chunk_scan.launches`` counts the calls that
+launched the kernel (one call is four dependent launches on the stream).
 """
 
 from __future__ import annotations
@@ -17,32 +17,32 @@ import torch
 from .. import _build
 from .ref import ssd_chunked_ref
 
-_SMEM_LIMIT = 232_448     # bytes of shared memory a block may use (H100)
-SSD_COLS = 16             # head-dim columns per block (must match the kernel)
-SSD_MAX_CHUNK = 256       # one scan step per thread (256 threads)
-SSD_MAX_STATE = 128       # state rows the kernel's registers cover
+SSD_HEAD_DIM_MULTIPLE = 16   # the state product's 16-row tiles of P
+SSD_MAX_CHUNK = 256          # cum's scan runs one step per thread
+SSD_MAX_STATE = 128          # the blocks stage at most 128 state columns
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     lib = _build.load("ssd")
     fn = lib.ssd_chunk_scan_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.ssd_workspace_floats.argtypes = [ctypes.c_int] * 7
+    lib.ssd_workspace_floats.restype = ctypes.c_longlong
     lib.ssd_error_string.argtypes = [ctypes.c_int]
     lib.ssd_error_string.restype = ctypes.c_char_p
-    return fn, lib.ssd_error_string
+    return fn, lib.ssd_workspace_floats, lib.ssd_error_string
 
 
-def _smem_bytes(Q: int, N: int) -> int:
-    """Dynamic shared memory of one block (must match the kernel's
-    ``smem_floats``), f32: B^T [N, Q4+4], a C^T tile [N, 32], a score tile
-    [32, Q4+1], dt.x [Q4, 16], the state [N, 16], cum and w [Q4] each and 8
-    warp sums, with Q4 = Q rounded up to a multiple of 4."""
-    q4 = -(-Q // 4) * 4
-    return 4 * (N * (q4 + 4) + N * 32 + 32 * (q4 + 1) + q4 * SSD_COLS
-                + N * SSD_COLS + 2 * q4 + 8)
+@functools.lru_cache(maxsize=1024)
+def _workspace_floats(B: int, S: int, H: int, P: int, N: int, Q: int,
+                      is_bf16: int) -> int:
+    """Floats of the launches' scratch (C.B^T per chunk, cum, the chunk
+    states and, for bf16, the split entering states), asked of the library
+    once per shape."""
+    return _kernel()[1](B, S, H, P, N, Q, is_bf16)
 
 
 def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -99,29 +99,28 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_scan: unsupported device {x.device}")
     Q = min(chunk, S)
-    if P % SSD_COLS or N > SSD_MAX_STATE or Q > SSD_MAX_CHUNK:
+    if P % SSD_HEAD_DIM_MULTIPLE or N > SSD_MAX_STATE or Q > SSD_MAX_CHUNK:
         raise ValueError(f"the kernel takes head_dim a multiple of "
-                         f"{SSD_COLS}, ssm_state <= {SSD_MAX_STATE} and "
-                         f"chunks <= {SSD_MAX_CHUNK}; got P={P}, N={N}, "
-                         f"Q={Q}")
-    smem = _smem_bytes(Q, N)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"chunk {Q} and ssm_state {N} need {smem} bytes of "
-                         f"shared memory (limit {_SMEM_LIMIT})")
+                         f"{SSD_HEAD_DIM_MULTIPLE}, ssm_state <= "
+                         f"{SSD_MAX_STATE} and chunks <= {SSD_MAX_CHUNK}; "
+                         f"got P={P}, N={N}, Q={Q}")
     y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
     final = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     if Bsz == 0 or H == 0 or P == 0:
         return y, final
-    fn, err_str = _kernel()
+    fn, _, err_str = _kernel()
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    ws = torch.empty(_workspace_floats(Bsz, S, H, P, N, Q, is_bf16),
+                     dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                  Cm.data_ptr(),
                  None if init_state is None else init_state.data_ptr(),
-                 y.data_ptr(), final.data_ptr(), Bsz, S, H, P, N, Q,
+                 y.data_ptr(), final.data_ptr(), ws.data_ptr(), Bsz, S, H, P,
+                 N, Q,
                  x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
-                 Cm.stride(0), Cm.stride(1), int(x.dtype == torch.bfloat16),
-                 stream)
+                 Cm.stride(0), Cm.stride(1), is_bf16, stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunk_scan launch failed: "
                            f"{err_str(err).decode()} (cuda error {err})")

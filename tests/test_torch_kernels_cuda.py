@@ -14,7 +14,8 @@ its sequence is.  The SSD chunk scan is held relative to the
 largest reference value: y within 1e-2 in bf16 (the plain version also
 rounds the scores, the decayed score matrix and dt to bf16, the kernel
 only y) and 1e-3 in float32, against the plain version and against the
-token-by-token recurrence; its float32 final state within 1e-3.  The
+token-by-token recurrence; its float32 final state within 1e-3; and a
+row's results must not depend on the batch it is launched in.  The
 RG-LRU scan multiplies and adds in its plain version's order, separately
 rounded, so it must equal it bit for bit (and so within 1e-5).
 """
@@ -87,11 +88,24 @@ MOE_TILE_EDGES = [(50, 4, 1, 64, 128), (51, 3, 65, 128, 96),
 MAIN_SSD = [(9, 1, 512, 24, 64, 128, 256, False),
             (10, 2, 300, 24, 64, 128, 256, True),
             (11, 2, 100, 4, 32, 32, 16, True)]
+# the chunk-parallel launches' tiles (64 rows of a chunk, 64 columns of P):
+# S shorter than one row tile; S = Q + 1 (a last chunk of one step), at
+# full width and at a row tile's edge; P = 80, two column blocks, the
+# second partial; N = 18, no multiple of the 16-byte copies
+SSD_TILE_EDGES = [(12, 2, 37, 3, 32, 64, 256, True),
+                  (13, 1, 257, 24, 64, 128, 256, True),
+                  (14, 2, 65, 2, 16, 32, 64, False),
+                  (15, 2, 150, 2, 80, 64, 128, True),
+                  (16, 2, 100, 2, 16, 18, 32, True)]
 SSD_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 # recurrentgemma-9b's RG-LRU scans (W=4096): an admission's 512-token
 # bucket with and without a carried state, and the model API's batch of 8
 MAIN_RGLRU = [(17, 1, 512, 4096, False), (18, 1, 512, 4096, True),
               (19, 8, 64, 4096, True)]
+# widths around the kernel's 32-channel blocks: 31 and 33 (4-byte copies:
+# rows no multiple of 16 bytes) and 4096 + 32
+RGLRU_WIDTH_EDGES = [(21, 2, 70, 31, True), (22, 1, 65, 33, False),
+                     (23, 1, 100, 4128, True)]
 
 
 @pytest.fixture
@@ -298,7 +312,8 @@ def test_ring_kernel_matches_plain(cuda_device, dtype, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", RGLRU_CASES + MAIN_RGLRU)
+@pytest.mark.parametrize("case",
+                         RGLRU_CASES + MAIN_RGLRU + RGLRU_WIDTH_EDGES)
 def test_rglru_scan_kernel_matches_plain(cuda_device, case):
     seed, B, S, W, init = case
     a, b, h0 = (None if x is None else torch.from_numpy(x).to(cuda_device)
@@ -404,7 +419,7 @@ def _rel(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", SSD_CASES + MAIN_SSD)
+@pytest.mark.parametrize("case", SSD_CASES + MAIN_SSD + SSD_TILE_EDGES)
 def test_ssd_kernel_matches_plain(cuda_device, dtype, case):
     args, h0, chunk = _ssd_inputs(case, cuda_device, dtype)
     n = ssd_ops.ssd_chunk_scan.launches
@@ -421,19 +436,40 @@ def test_ssd_kernel_matches_plain(cuda_device, dtype, case):
 
 
 @pytest.mark.cuda
-def test_ssd_kernel_reads_strided_rows_in_place(cuda_device):
+@pytest.mark.parametrize("pad", [0, 1])
+def test_ssd_kernel_reads_strided_rows_in_place(cuda_device, pad):
     """x, Bm and Cm as slices of one [B,S,H*P+2N] buffer, as the model
-    hands them over, give the contiguous copies' results bitwise."""
+    hands them over, give the contiguous copies' results bitwise; and so
+    do rows one element longer, which no 16-byte copy can read."""
     args, _, chunk = _ssd_inputs(MAIN_SSD[2], cuda_device, torch.bfloat16)
     x, dt, A, Bm, Cm = args
     B, S, H, P = x.shape
     N = Bm.shape[-1]
-    buf = torch.cat([x.reshape(B, S, H * P), Bm, Cm], dim=-1)
-    xs, bs, cs = torch.split(buf, [H * P, N, N], dim=-1)
+    buf = torch.cat([x.reshape(B, S, H * P), Bm, Cm, Cm[..., :pad]], dim=-1)
+    xs, bs, cs, _ = torch.split(buf, [H * P, N, N, pad], dim=-1)
     got = ssd_ops.ssd_chunk_scan(xs.reshape(B, S, H, P), dt, A, bs, cs,
                                  chunk=chunk)
     want = ssd_ops.ssd_chunk_scan(x, dt, A, Bm, Cm, chunk=chunk)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_rows_do_not_depend_on_the_batch(cuda_device, dtype):
+    """Row b of a B=8 launch equals, bitwise, the same row launched alone,
+    with and without initial states."""
+    args, h0, chunk = _ssd_inputs((24, 8, 300, 3, 64, 128, 128, True),
+                                  cuda_device, dtype)
+    x, dt, A, Bm, Cm = args
+    for init in (h0, None):
+        y, final = ssd_ops.ssd_chunk_scan(*args, chunk=chunk, init_state=init)
+        for b in range(8):
+            yb, fb = ssd_ops.ssd_chunk_scan(
+                x[b:b + 1], dt[b:b + 1], A, Bm[b:b + 1], Cm[b:b + 1],
+                chunk=chunk, init_state=None if init is None
+                else init[b:b + 1])
+            assert torch.equal(yb, y[b:b + 1])
+            assert torch.equal(fb, final[b:b + 1])
 
 
 @pytest.mark.cuda
