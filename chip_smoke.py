@@ -11,13 +11,15 @@ the run with a non-zero exit and no result line:
 2. kernels — hold each kernel against its plain PyTorch version on the card
              in bf16 at the shapes of the path that runs it (the expert
              FFN also bitwise across row counts, the flash kernel's rows
-             bitwise across sequence lengths, the SSD chunk scan's across
-             batch sizes; the SSD chunk scan also in float32, and against
-             the token-by-token recurrence), and time kernel, plain version
+             bitwise across sequence lengths, the SSD chunk scan's and the
+             ring kernel's across batch sizes; the SSD chunk scan and the
+             ring kernel also in float32, the scan against the
+             token-by-token recurrence), and time kernel, plain version
              and a PyTorch yardstick (``library_ms``, never used by the
              port) against the card's bound; the timed flash, expert-FFN,
-             SSD and RG-LRU rows name their design and each launch's
-             ptxas registers and spills.
+             ring, SSD and RG-LRU rows name their design and each launch's
+             ptxas registers and spills, the ring rows also the wrapper's
+             host time per call.
 3. serve   — qwen3-0.6b at full width (random weights from a seed) served by
              the port's paged ``InferenceEngine``: 16 requests with
              follow-up turns and a shared system prompt (timed), a third
@@ -211,6 +213,23 @@ class Timer:
                   f"warm-up): the next reading includes host time")
         return float(np.median([s.elapsed_time(e)
                                 for s, e in zip(starts, ends)]))
+
+    def host_us(self, fn, batches: int = 4, per_batch: int = 25) -> float:
+        """Median host microseconds of one call of ``fn`` (a wrapper's own
+        cost): the calls are queued behind a 20 ms spin, so none waits on
+        the card."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        us = []
+        for _ in range(batches):
+            torch.cuda._sleep(int(20 * self.cycles_per_ms))
+            for _ in range(per_batch):
+                t0 = time.perf_counter()
+                fn()
+                us.append((time.perf_counter() - t0) * 1e6)
+            torch.cuda.synchronize()
+        return float(np.median(us))
 
 
 def bound_ms(n_bytes: float, flops: float,
@@ -622,42 +641,65 @@ def flash_rows(torch, timer, flash_ops, flash_ref, tag, H, D, seed,
     return err, timings
 
 
+# the ring kernel's split launches (bf16, f32) and the merge, in ptxas's
+# mangled names
+RING_SYMBOLS = ("tc17ring_split_kernel", "f3217ring_split_kernel",
+                "19merge_splits_kernelI13__nv_bfloat16E")
+RING_DESIGN = ("design=split-KV, fixed splits of {S} slots, grid (splits, "
+               "Hkv, B) = {blocks} blocks ({live} with a visible slot) + "
+               "the shared merge; bf16 mma.sync m16n8k16, n_rep rows padded "
+               "to 16, P as bf16 hi + lo")
+
+
 def ring_rows(torch, timer, paged_ops, paged_ref, tag, H, Hkv, D, seed,
               cases):
-    """The ring kernel (``decode_attention_kernel``) on bf16 q [B,1,H,D]
-    and caches [B,C,Hkv,D]: at each (label, C, window, pos) of ``cases``
-    held against its plain version, and where ``label`` is not None timed
-    beside it and SDPA with a boolean mask over the GQA-repeated cache.
-    Returns the largest difference and the timings by label."""
+    """The ring kernel (``decode_attention_kernel``) on q [B,1,H,D] and
+    caches [B,C,Hkv,D]: at each (label, C, window, pos) of ``cases`` held
+    against its plain version in bf16 and in float32, and each row of the
+    launch bitwise against a B=1 launch of that row in both; where
+    ``label`` is not None timed (bf16) beside the plain version and SDPA
+    with a boolean mask over the GQA-repeated cache, with the wrapper's host
+    time per call.  Returns the largest bf16 difference and the timings by
+    label."""
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(seed)
     n_rep, scale = H // Hkv, D ** -0.5
     err, timings = 0.0, {}
     for label, C, window, pos in cases:
         B = len(pos)
-        q = torch.randn((B, 1, H, D), generator=g, device="cuda")
-        ck, cv = (torch.randn((B, C, Hkv, D), generator=g, device="cuda")
-                  for _ in range(2))
-        q, ck, cv = (x.to(torch.bfloat16) for x in (q, ck, cv))
+        q32 = torch.randn((B, 1, H, D), generator=g, device="cuda")
+        ck32, cv32 = (torch.randn((B, C, Hkv, D), generator=g, device="cuda")
+                      for _ in range(2))
         pos_t = torch.from_numpy(pos.astype(np.int32)).cuda()
-        got = paged_ops.decode_attention_kernel(q, ck, cv, pos_t,
-                                                window=window, scale=scale,
-                                                n_rep=n_rep)
-        torch.cuda.synchronize()
-        want = paged_ref.decode_ring_ref(q, ck, cv, pos_t, scale=scale,
-                                         n_rep=n_rep, window=window)
-        e = (got.float() - want.float()).abs().max().item()
-        ok = torch.allclose(got.float(), want.float(), **KERNEL_TOL)
+        kw = dict(window=window, scale=scale, n_rep=n_rep)
         wrapped = " (wrapped)" if int(pos.min()) >= C else ""
-        print(f"[{tag}] decode_ring B={B} C={C} H={H} Hkv={Hkv} D={D} "
-              f"window={window} pos={pos.min()}..{pos.max()}{wrapped} "
-              f"max_abs_err={e:.3e} tol={KERNEL_TOL} ok={ok}")
-        check(ok and bool(torch.isfinite(got).all()),
-              f"decode_ring disagrees with its plain version (C={C}, "
-              f"window={window}, D={D})")
-        err = max(err, e)
+        for dt, tol in ((torch.bfloat16, KERNEL_TOL),
+                        (torch.float32, dict(rtol=1e-5, atol=1e-5))):
+            q, ck, cv = (x.to(dt) for x in (q32, ck32, cv32))
+            got = paged_ops.decode_attention_kernel(q, ck, cv, pos_t, **kw)
+            rows_same = all(torch.equal(
+                paged_ops.decode_attention_kernel(
+                    q[b:b + 1], ck[b:b + 1], cv[b:b + 1], pos_t[b:b + 1],
+                    **kw), got[b:b + 1]) for b in range(B))
+            torch.cuda.synchronize()
+            want = paged_ref.decode_ring_ref(q, ck, cv, pos_t, scale=scale,
+                                             n_rep=n_rep, window=window)
+            e = (got.float() - want.float()).abs().max().item()
+            ok = torch.allclose(got.float(), want.float(), **tol)
+            name = "bf16" if dt == torch.bfloat16 else "f32"
+            print(f"[{tag}] decode_ring {name} B={B} C={C} H={H} Hkv={Hkv} "
+                  f"D={D} window={window} pos={pos.min()}..{pos.max()}"
+                  f"{wrapped} max_abs_err={e:.3e} tol={tol} ok={ok}; rows "
+                  f"bitwise equal to B=1 launches: {rows_same}")
+            check(ok and rows_same and bool(torch.isfinite(got).all()),
+                  f"decode_ring {name} disagrees with its plain version or "
+                  f"its rows depend on the batch (C={C}, window={window}, "
+                  f"D={D})")
+            if dt == torch.bfloat16:
+                err = max(err, e)
         if label is None:
             continue
+        q, ck, cv = (x.to(torch.bfloat16) for x in (q32, ck32, cv32))
         visible = paged_ref.ring_visible(pos_t, C, window)
         n_bytes, flops = ring_cost(visible, H, Hkv, D)
         bound, by = bound_ms(n_bytes, flops)
@@ -669,18 +711,29 @@ def ring_rows(torch, timer, paged_ops, paged_ref, tag, H, Hkv, D, seed,
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), kr, vr, attn_mask=mask, scale=scale)
 
-        t = {"ms": timer.ms(lambda: paged_ops.decode_attention_kernel(
-                 q, ck, cv, pos_t, window=window, scale=scale, n_rep=n_rep)),
+        def kernel():
+            return paged_ops.decode_attention_kernel(q, ck, cv, pos_t, **kw)
+
+        t = {"ms": timer.ms(kernel),
              "plain_ms": timer.ms(lambda: paged_ref.decode_ring_ref(
                  q, ck, cv, pos_t, scale=scale, n_rep=n_rep, window=window)),
              "library_ms": timer.ms(library),
              "bound_ms": bound, "bound_by": by}
         timings[label] = t
+        host = timer.host_us(kernel)
+        S = paged_ops.RING_SPLIT[q.dtype]
+        n_splits = paged_ops.ring_splits(C, q.dtype)
+        vis = visible.cpu()
+        live = Hkv * sum(bool(vis[b, s * S:(s + 1) * S].any())
+                         for b in range(B) for s in range(n_splits))
+        design = RING_DESIGN.format(S=S, blocks=B * Hkv * n_splits,
+                                    live=live)
         print(f"[{tag}] decode_ring timed ({label}) B={B} C={C} H={H} "
               f"Hkv={Hkv} D={D} window={window}: ms={t['ms']:.4f} plain_ms="
               f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
               f"(repeat + SDPA) bound_ms={bound:.5f} ({by}; {n_bytes} B, "
-              f"{flops} flop; {B * Hkv} blocks)")
+              f"{flops} flop); wrapper host us per call {host:.1f} (queued "
+              f"behind a spin) {design} [{ptxas_tag(*RING_SYMBOLS)}]")
     return err, timings
 
 
@@ -907,10 +960,11 @@ def run_trace(engine, vocab, Request, sampling):
 
 
 def profile_window(torch, engine, cfg, Request, sampling, n_warm=4,
-                   n_steps=10):
+                   n_steps=10, names=()):
     """A third wave of 8 fresh requests; ``n_steps`` engine steps of it run
-    under ``torch.profiler``: the device's busy share of the window and
-    the kernels that fill it."""
+    under ``torch.profiler``: the device's busy share of the window, the
+    kernels that fill it, and the device time and launches of the kernels
+    whose names hold one of ``names``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -948,6 +1002,11 @@ def profile_window(torch, engine, cfg, Request, sampling, n_warm=4,
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms "
               f"{e.count:6d}x  {e.key[:90]}")
+    for name in names:
+        hit = [e for e in kernels if name in e.key]
+        ms = sum(e.self_device_time_total for e in hit) / 1e3
+        print(f"[profile] {name}: {ms:.3f} ms over "
+              f"{sum(e.count for e in hit)} launches in the {n_steps} steps")
 
 
 def admission_window(torch, engine, cfg, Request, sampling, tag, kernels):
@@ -2301,7 +2360,8 @@ def hybrid_serve(torch, rt, model, params, counters, tally, prefill_chunk,
           f"{per}; launches {launches}")
     if profile:
         profile_window(torch, engine, cfg, Request,
-                       SamplingParams(max_new_tokens=16))
+                       SamplingParams(max_new_tokens=16),
+                       names=("ring_split_kernel", "merge_splits_kernel"))
         if prefill_chunk == 0:
             admission_window(torch, engine, cfg, Request,
                              SamplingParams(max_new_tokens=4), "hybrid",

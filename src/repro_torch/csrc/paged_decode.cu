@@ -26,8 +26,9 @@
 // into shared memory (16-byte cp.async copies, all in flight at once),
 // computes its n_rep query rows' scores, and leaves an unnormalised partial
 // state, the row max m, the sum l of exp(s - m) and acc = sum exp(s - m) *
-// v, in f32 scratch.  A second launch, `merge_splits_kernel`, combines each
-// query row's splits, weighting split j by exp(m_j - max_j m_j).  A split
+// v, in f32 scratch.  A second launch, `merge_splits_kernel`
+// (csrc/split_merge.cuh, shared with the ring kernel), combines each query
+// row's splits, weighting split j by exp(m_j - max_j m_j).  A split
 // that holds no visible token (a -1 entry, or a page wholly at or past
 // lengths[b]) exits at once with l = 0, and the merge passes over it: it
 // weighs 0 whatever its page holds.  Tokens past lengths[b] in the last
@@ -44,6 +45,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "split_merge.cuh"
+
 namespace {
 
 // The kernel's dynamic shared memory limit is set to the card's per-block
@@ -59,14 +62,6 @@ constexpr int kWarps = kThreads / 32;
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -190,38 +185,6 @@ paged_decode_split_kernel(const T* __restrict__ q,
   }
 }
 
-// The merge pass of split softmax attention, for any kernel that leaves
-// per-split partial states: one block per query row.  part_ml [rows,
-// n_splits, 2] holds each split's (m, l), part_acc [rows, n_splits, D] its
-// unnormalised sum; out[row] = sum_s w_s acc_s / sum_s w_s l_s with w_s =
-// exp(m_s - max m).  Splits with l = 0 saw no visible token and are passed
-// over (their acc is never read); a row with none gets zeros.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-merge_splits_kernel(const float* __restrict__ part_acc,
-                    const float* __restrict__ part_ml, T* __restrict__ out,
-                    int n_splits, int D) {
-  const int64_t row = blockIdx.x;
-  const float* ml = part_ml + row * n_splits * 2;
-  const float* acc = part_acc + row * n_splits * D;
-  float m_max = -INFINITY;
-  for (int s = 0; s < n_splits; ++s)
-    if (ml[2 * s + 1] > 0.f) m_max = fmaxf(m_max, ml[2 * s]);
-  for (int d = threadIdx.x; d < D; d += kThreads) {
-    float num = 0.f, den = 0.f;
-#pragma unroll 4
-    for (int s = 0; s < n_splits; ++s) {
-      const float l = ml[2 * s + 1];
-      if (l > 0.f) {
-        const float w = expf(ml[2 * s] - m_max);
-        num += w * acc[static_cast<int64_t>(s) * D + d];
-        den += w * l;
-      }
-    }
-    out[row * D + d] = from_f<T>(num / fmaxf(den, 1e-30f));
-  }
-}
-
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* pt,
            const void* lengths, float* part_acc, float* part_ml, void* out,
@@ -243,7 +206,8 @@ int launch(const void* q, const void* k, const void* v, const void* pt,
       max_pages, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  merge_splits_kernel<T><<<B * Hkv * n_rep, kThreads, 0, stream>>>(
+  split_merge::merge_splits_kernel<T>
+      <<<B * Hkv * n_rep, split_merge::kThreads, 0, stream>>>(
       part_acc, part_ml, static_cast<T*>(out), max_pages, D);
   return static_cast<int>(cudaGetLastError());
 }

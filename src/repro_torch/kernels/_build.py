@@ -7,7 +7,8 @@ into ``build/repro_torch_kernels/`` at the repository root; a library's
 file name carries a hash of its source, the shared headers (``csrc/*.cuh``)
 and the flags, so an edited source or header is rebuilt and a stale
 library is never loaded.  ``build_all`` starts one
-``nvcc`` per source, all at once, and waits for them.
+``nvcc`` per source, all at once, and waits for them.  ``current_stream``
+gives every wrapper the stream its launches go to.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 REPO = Path(__file__).resolve().parents[3]
@@ -106,3 +109,12 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
         return lib
+
+
+def current_stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, for launches made
+    with ``device`` current: ``torch.cuda.current_stream().cuda_stream``
+    without the ``torch.cuda.Stream`` object that call builds each time
+    (host time every wrapper would pay a call; ``tools/ring_ab.py`` times
+    both)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -71,7 +71,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     fn, err_str = _kernel()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = _build.current_stream(q.device)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  BH, Sq, k.shape[1], D, float(scale), int(bool(causal)),
                  int(window or 0), int(q.dtype == torch.bfloat16), stream)

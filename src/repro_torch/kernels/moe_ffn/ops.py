@@ -102,7 +102,7 @@ def moe_ffn(xe: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     h = torch.empty((E, C, F), dtype=torch.float32,
                     device=xe.device) if bf16 else None
     with torch.cuda.device(xe.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = _build.current_stream(xe.device)
         err = fn(xe.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
                  w_down.data_ptr(), out.data_ptr(),
                  None if h is None else h.data_ptr(), E, C, D, F, x_stride,

@@ -1,7 +1,8 @@
 """Wrappers of the decode attention kernels: paged chunk attention
 (``csrc/paged_chunk.cu``), one-token split-KV paged decode
-(``csrc/paged_decode.cu``) and ring decode attention
-(``csrc/decode_ring.cu``).
+(``csrc/paged_decode.cu``) and split-KV ring decode attention
+(``csrc/decode_ring.cu``); the two split-KV kernels share their merge
+(``csrc/split_merge.cuh``).
 
 A CUDA tensor launches the hand-written kernel and the call raises if it
 cannot; a CPU tensor takes the plain version in :mod:`.ref`.  Nothing else
@@ -92,7 +93,7 @@ def paged_decode_chunk(q: torch.Tensor, k_pages: torch.Tensor,
         return out
     fn, err_str = _kernel()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = _build.current_stream(q.device)
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
                  B, T, Hkv, n_rep, D, P, page_table.shape[1], float(scale),
@@ -192,7 +193,7 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                           device=q.device)
     fn, err_str = _decode_kernel()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = _build.current_stream(q.device)
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  page_table.data_ptr(), lengths.data_ptr(),
                  part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
@@ -211,14 +212,34 @@ paged_decode_attention = paged_decode
 
 
 # ------------------------------------------------------------- ring decode
-RING_BLOCK_K = 64         # cache slots per staged tile (must match the kernel)
+# ring slots per split, by type: 128 on the tensor cores (bf16), 64 on the
+# CUDA cores (f32, whose 128-slot K and V would not fit in shared memory)
+# (must match the kernel)
+RING_SPLIT = {torch.bfloat16: 128, torch.float32: 64}
+
+
+def ring_splits(C: int, dtype: torch.dtype) -> int:
+    """Splits of a C-slot ring: split s holds slots [s * S, min(C, (s + 1)
+    * S)) with S = ``RING_SPLIT[dtype]``.  It depends on C and the type
+    alone, never on the batch or the positions (must match the kernel)."""
+    return -(-C // RING_SPLIT[dtype])
+
+
+def ring_scratch(rows: int, C: int, D: int, dtype: torch.dtype,
+                 device) -> torch.Tensor:
+    """The split kernel's f32 scratch for ``rows`` = B*H query rows, one
+    buffer: ``part_acc`` [rows, n_splits, D], then ``part_ml`` [rows,
+    n_splits, 2], with n_splits = ``ring_splits(C, dtype)``; each row's
+    partials are laid out by C and the type alone."""
+    return torch.empty(rows * ring_splits(C, dtype) * (D + 2),
+                       dtype=torch.float32, device=device)
 
 
 @functools.lru_cache(maxsize=None)
 def _ring_kernel():
     lib = _build.load("decode_ring")
     fn = lib.decode_ring_attention
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.decode_ring_error_string.argtypes = [ctypes.c_int]
@@ -226,11 +247,17 @@ def _ring_kernel():
     return fn, lib.decode_ring_error_string
 
 
-def _ring_smem_bytes(n_rep: int, D: int) -> int:
-    """Dynamic shared memory of one ring block (must match the kernel)."""
-    bk = RING_BLOCK_K
-    return 4 * (n_rep * (D + 1) + bk * (D + 1) + bk * D + n_rep * bk
-                + n_rep * D + 3 * n_rep)
+def _ring_smem_bytes(n_rep: int, D: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one split block (must match the kernel).
+    bf16: q, K and V rows in bf16, padded to multiples of 16 rows and
+    columns plus 8 columns, one m-tile's f32 scores and P hi / lo; f32: K,
+    V, q and the scores in f32."""
+    S = RING_SPLIT[dtype]
+    if dtype == torch.bfloat16:
+        st = -(-D // 16) * 16 + 8
+        return (2 * (-(-n_rep // 16) * 16 + 2 * S) * st + 4 * 16 * (S + 8)
+                + 2 * 2 * 16 * (S + 8))
+    return 4 * (2 * S * D + n_rep * D + n_rep * S)
 
 
 def decode_attention_kernel(q: torch.Tensor, cache_k: torch.Tensor,
@@ -244,7 +271,11 @@ def decode_attention_kernel(q: torch.Tensor, cache_k: torch.Tensor,
     every slot is visible without a window).  With ``window`` the cache is
     a ring and only the last ``min(window, pos+1)`` positions are visible.
     -> [B,1,H,D].  The layout checks hold on every device, so the CPU path
-    takes exactly what the kernel takes."""
+    takes exactly what the kernel takes.
+
+    On the card one call is two kernel launches, the split kernel over
+    ``ring_splits(C, q.dtype)`` splits of the ring and the merge, and
+    counts once in ``decode_attention_kernel.launches``."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be [B,1,H,D], got {tuple(q.shape)}")
     B, _, H, D = q.shape
@@ -279,20 +310,23 @@ def decode_attention_kernel(q: torch.Tensor, cache_k: torch.Tensor,
     if D % vec or any(t.data_ptr() % 16 for t in (q, cache_k, cache_v)):
         raise ValueError(f"head dim must be a multiple of {vec} and the "
                          f"tensors 16-byte aligned")
-    smem = _ring_smem_bytes(n_rep, D)
+    smem = _ring_smem_bytes(n_rep, D, q.dtype)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"n_rep={n_rep} rows of head dim {D} need {smem} "
                          f"bytes of shared memory (limit {_SMEM_LIMIT})")
     out = torch.empty_like(q)
     if B == 0 or C == 0:
         return out
+    scratch = ring_scratch(B * H, C, D, q.dtype, q.device)
+    part_acc = scratch.data_ptr()
+    part_ml = part_acc + 4 * B * H * ring_splits(C, q.dtype) * D
     fn, err_str = _ring_kernel()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = _build.current_stream(q.device)
         err = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-                 pos.data_ptr(), out.data_ptr(), B, C, Hkv, n_rep, D,
-                 -1 if window is None else int(window), float(scale),
-                 int(q.dtype == torch.bfloat16), stream)
+                 pos.data_ptr(), part_acc, part_ml, out.data_ptr(), B, C,
+                 Hkv, n_rep, D, -1 if window is None else int(window),
+                 float(scale), int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"decode_ring_attention launch failed: "
                            f"{err_str(err).decode()} (cuda error {err})")

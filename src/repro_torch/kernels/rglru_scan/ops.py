@@ -65,7 +65,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
         return y, final
     fn, err_str = _kernel()
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = _build.current_stream(a.device)
         err = fn(a.data_ptr(), b.data_ptr(),
                  None if h0 is None else h0.data_ptr(), y.data_ptr(),
                  final.data_ptr(), B, S, W, stream)

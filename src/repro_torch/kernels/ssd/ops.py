@@ -113,7 +113,7 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ws = torch.empty(_workspace_floats(Bsz, S, H, P, N, Q, is_bf16),
                      dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = _build.current_stream(x.device)
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                  Cm.data_ptr(),
                  None if init_state is None else init_state.data_ptr(),

@@ -5,8 +5,9 @@ padding, ragged positions, partial tail pages, valid pages wholly past a
 sequence's length, chunk lengths and sequence
 lengths that are no multiple of any tile, a windowed and a non-causal
 attention, ring caches whose positions wrap past the cache length
-(twice), with windows below, at and above it, expert-FFN row counts and
-widths that are no multiple of the kernel's tiles, SSD sequences with a
+(twice), with windows below, at and above it, the ring kernel's split
+edges, expert-FFN row counts and widths that are no multiple of the
+kernel's tiles, SSD sequences with a
 ragged last chunk, a chunk longer than the sequence and an initial state,
 and RG-LRU scans over sequences and widths that are no multiple of any
 block, with and without an initial state.  Inputs come from numpy seeds.
@@ -137,6 +138,39 @@ RING_CASES = [
     # a window above the cache length and positions past 2C
     (6, 4, 40, 2, 2, 32, 64),
 ]
+
+# The split kernel's edges (splits of 128 slots in bf16, 64 in float32):
+# caches of 40 and 96 slots (below one bf16 split), 130 and 200 (no
+# multiple of either split), positions 0, C-1, C (the ring's wrap onto
+# slot 0) and >= 2C, window edges inside a split, window 1, windows above
+# C, recurrentgemma's group (n_rep 16, D 256) at a small B and C, a head
+# dim (40) no multiple of 16 with n_rep 3, and n_rep 20 (two m-tiles of 16
+# rows).
+RING_SPLIT_EDGES = [
+    # seed, B, C, Hkv, n_rep, D, window, pos
+    (20, 4, 40, 2, 2, 32, None, (0, 39, 40, 85)),
+    (21, 4, 40, 2, 2, 32, 16, (0, 39, 40, 85)),
+    (22, 4, 96, 1, 4, 64, 48, (0, 95, 96, 200)),
+    (23, 5, 200, 2, 2, 32, 70, (0, 199, 200, 450, 130)),
+    (24, 4, 96, 2, 2, 32, 1, (0, 63, 64, 300)),
+    (25, 5, 200, 1, 4, 64, 500, (0, 199, 200, 401, 1000)),
+    (26, 4, 200, 2, 2, 64, None, (0, 199, 200, 450)),
+    (27, 2, 96, 1, 16, 256, 80, (50, 250)),
+    (28, 2, 130, 1, 16, 256, None, (129, 300)),
+    (29, 4, 130, 2, 3, 40, 64, (0, 129, 130, 300)),
+    (30, 3, 70, 1, 20, 64, 30, (5, 69, 150)),
+]
+
+
+def ring_inputs(case):
+    """(q, cache_k, cache_v, pos, n_rep, window) of a ``RING_CASES`` or
+    ``RING_SPLIT_EDGES`` entry; an edge's positions replace the drawn ones
+    (its B is their count)."""
+    seed, B, C, Hkv, n_rep, D, window = case[:7]
+    q, ck, cv, pos = ring_case(seed, B, C, Hkv, n_rep, D)
+    if len(case) > 7:
+        pos = np.asarray(case[7], np.int32)
+    return q, ck, cv, pos, n_rep, window
 
 
 def moe_case(seed, E, C, D, F):

@@ -10,7 +10,10 @@ relative (both sides round the output to bf16 once; the flash kernel also
 rounds its probabilities to bf16 before P.V, as its plain version does).
 The expert-FFN kernel's rows must also be bitwise independent of how many
 rows are launched with them, and a causal flash launch's rows of how long
-its sequence is.  The SSD chunk scan is held relative to the
+its sequence is, and the split-KV ring kernel's rows (bf16 on the tensor
+cores, P as bf16 hi + lo) of the batch they are launched in; NaN in the
+ring slots a row cannot see must not reach it.  The SSD chunk scan is
+held relative to the
 largest reference value: y within 1e-2 in bf16 (the plain version also
 rounds the scores, the decayed score matrix and dt to bf16, the kernel
 only y) and 1e-3 in float32, against the plain version and against the
@@ -26,9 +29,9 @@ import torch
 
 from _torch_cases import (FLASH_CASES, MOE_CASES, PAGED_CASES,
                           PAGED_DECODE_CASES, RGLRU_CASES, RING_CASES,
-                          SSD_CASES, moe_case, paged_case, paged_decode_case,
-                          paged_decode_sweep, rglru_case, ring_case,
-                          ssd_case)
+                          RING_SPLIT_EDGES, SSD_CASES, moe_case, paged_case,
+                          paged_decode_case, paged_decode_sweep, rglru_case,
+                          ring_inputs, ssd_case)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_bhsd_ref
 from repro_torch.kernels.moe_ffn import ops as moe_ops
@@ -36,7 +39,8 @@ from repro_torch.kernels.moe_ffn.ref import moe_ffn_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ref import (decode_ring_ref,
                                                      paged_decode_chunk_ref,
-                                                     paged_decode_ref)
+                                                     paged_decode_ref,
+                                                     ring_visible)
 from repro_torch.kernels.rglru_scan import ops as scan_ops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
@@ -292,15 +296,19 @@ def test_flash_rows_do_not_depend_on_the_sequence_length(cuda_device, dtype,
     assert torch.equal(head, full[:, :300])
 
 
+def _ring_inputs(case, device, dtype):
+    q, ck, cv, pos, n_rep, window = ring_inputs(case)
+    q, ck, cv = (torch.from_numpy(a).to(device, dtype) for a in (q, ck, cv))
+    return q, ck, cv, torch.from_numpy(pos).to(device), n_rep, window
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", RING_CASES + MAIN_RING + MAIN_RING_256)
+@pytest.mark.parametrize("case", RING_CASES + MAIN_RING + MAIN_RING_256
+                         + RING_SPLIT_EDGES)
 def test_ring_kernel_matches_plain(cuda_device, dtype, case):
-    seed, B, C, Hkv, n_rep, D, window = case
-    arrs = ring_case(seed, B, C, Hkv, n_rep, D)
-    q, ck, cv = (torch.from_numpy(a).to(cuda_device, dtype)
-                 for a in arrs[:3])
-    pos = torch.from_numpy(arrs[3]).to(cuda_device)
+    q, ck, cv, pos, n_rep, window = _ring_inputs(case, cuda_device, dtype)
+    D = q.shape[-1]
     n = paged_ops.decode_attention_kernel.launches
     got = paged_ops.decode_attention_kernel(q, ck, cv, pos, window=window,
                                             scale=D ** -0.5, n_rep=n_rep)
@@ -309,6 +317,43 @@ def test_ring_kernel_matches_plain(cuda_device, dtype, case):
     want = decode_ring_ref(q, ck, cv, pos, scale=D ** -0.5, n_rep=n_rep,
                            window=window)
     torch.testing.assert_close(got.float(), want.float(), **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MAIN_RING + MAIN_RING_256)
+def test_ring_rows_do_not_depend_on_the_batch(cuda_device, dtype, case):
+    """Each row of a B=8 launch equals, bitwise, a B=1 launch of that row:
+    the ring's splits are fixed by C alone and merged in split order."""
+    q, ck, cv, pos, n_rep, window = _ring_inputs(case, cuda_device, dtype)
+    kw = dict(window=window, scale=q.shape[-1] ** -0.5, n_rep=n_rep)
+    full = paged_ops.decode_attention_kernel(q, ck, cv, pos, **kw)
+    for b in range(q.shape[0]):
+        one = paged_ops.decode_attention_kernel(
+            *(x[b:b + 1].contiguous() for x in (q, ck, cv, pos)), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(one, full[b:b + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [MAIN_RING[1], RING_SPLIT_EDGES[3],
+                                  RING_SPLIT_EDGES[7]])
+def test_ring_kernel_never_reads_invisible_slots(cuda_device, dtype, case):
+    """NaN in every slot a row cannot see (a ring slot never written may
+    hold anything) leaves the output finite and bitwise equal to the
+    clean cache's: invisible slots are zero-filled without being read."""
+    q, ck, cv, pos, n_rep, window = _ring_inputs(case, cuda_device, dtype)
+    kw = dict(window=window, scale=q.shape[-1] ** -0.5, n_rep=n_rep)
+    hidden = ~ring_visible(pos, ck.shape[1], window)[:, :, None, None]
+    clean = paged_ops.decode_attention_kernel(q, ck, cv, pos, **kw)
+    nan = torch.tensor(float("nan"), device=cuda_device, dtype=dtype)
+    dirty = paged_ops.decode_attention_kernel(
+        q, torch.where(hidden, nan, ck), torch.where(hidden, nan, cv), pos,
+        **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dirty).all())
+    assert torch.equal(dirty, clean)
 
 
 @pytest.mark.cuda
