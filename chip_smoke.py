@@ -12,19 +12,22 @@ the run with a non-zero exit and no result line:
              in bf16 at the shapes of the path that runs it (the expert
              FFN also bitwise across row counts, the flash kernel's rows
              bitwise across sequence lengths, the SSD chunk scan's and the
-             ring kernel's across batch sizes; the SSD chunk scan and the
-             ring kernel also in float32, the scan against the
-             token-by-token recurrence), and time kernel, plain version
-             and a PyTorch yardstick (``library_ms``, never used by the
-             port) against the card's bound; the timed flash, expert-FFN,
-             ring, SSD and RG-LRU rows name their design and each launch's
-             ptxas registers and spills, the ring rows also the wrapper's
-             host time per call.
+             ring kernel's across batch sizes, the paged chunk kernel's
+             across batch sizes and chunk lengths, and past its old
+             128-row cap at R = 144 and 256; the SSD chunk scan, the ring
+             and the paged chunk kernels also in float32, the scan against
+             the token-by-token recurrence), and time kernel, plain
+             version and a PyTorch yardstick (``library_ms``, never used
+             by the port) against the card's bound; the timed paged chunk,
+             flash, expert-FFN, ring, SSD and RG-LRU rows name their design
+             and each launch's ptxas registers and spills, the paged chunk
+             and ring rows also the wrapper's host time per call.
 3. serve   — qwen3-0.6b at full width (random weights from a seed) served by
              the port's paged ``InferenceEngine``: 16 requests with
              follow-up turns and a shared system prompt (timed), a third
              wave of 8 requests of which 10 steps run under
-             ``torch.profiler``, one ``warm_session`` replay and one request
+             ``torch.profiler`` (the paged chunk kernel's split launches
+             and merge apart), one ``warm_session`` replay and one request
              on a ``prefill_chunk=0`` engine.  Every launch counter is set to
              0 before this phase and read after it (the paged chunk and
              flash kernels run here).
@@ -92,6 +95,8 @@ limit (``nvidia-smi``), and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import importlib
+import importlib.util
 import json
 import re
 import subprocess
@@ -419,58 +424,9 @@ def phase_kernels(torch, timer, paged_ops, paged_ref, flash_ops, flash_ref,
                   moe_ops, moe_ref, ssd_ops, ssd_ref, cfg, moe_cfg, ssm_cfg,
                   decode_batch, decode_ctx):
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    n_rep = H // Hkv
-    P, max_seq, max_batch = 64, 1024, 8
-    maxp = max_seq // P
-    n_pages = max_batch * (max_seq // P + 1) * 2      # the engine's default
-    scale = D ** -0.5
     rows = {}
-
-    # --- paged_decode_chunk: main-path shapes, T in {1, 3, 8}
-    err = 0.0
-    for T in (1, 3, 8):
-        q, kp, vp, pt, pos = paged_inputs(torch, T, max_batch, T, H, Hkv, D,
-                                          P, n_pages, maxp,
-                                          (0, max_seq - T))
-        got = paged_ops.paged_decode_chunk(q, kp, vp, pt, pos, scale=scale,
-                                           n_rep=n_rep)
-        torch.cuda.synchronize()
-        want = paged_ref.paged_decode_chunk_ref(q, kp, vp, pt, pos,
-                                                scale=scale, n_rep=n_rep)
-        e = (got.float() - want.float()).abs().max().item()
-        ok = torch.allclose(got.float(), want.float(), **KERNEL_TOL)
-        print(f"[kernels] paged_decode_chunk T={T} B={max_batch} "
-              f"max_abs_err={e:.3e} tol={KERNEL_TOL} ok={ok}")
-        check(ok and bool(torch.isfinite(got).all()),
-              f"paged_decode_chunk disagrees with its plain version (T={T})")
-        err = max(err, e)
-
-    # timed at two serving shapes: a chunked-prefill step (T=8) and a decode
-    # step (T=1), contexts of the served prompts (32..512 + 32 new tokens)
-    timings = {}
-    for T in (8, 1):
-        q, kp, vp, pt, pos = paged_inputs(torch, 100 + T, max_batch, T, H,
-                                          Hkv, D, P, n_pages, maxp,
-                                          (32, 544))
-        n_bytes, flops = paged_cost(pt, pos, T, H, Hkv, D, P)
-        bound, by = bound_ms(n_bytes, flops)
-        library = gather_sdpa(torch, q, kp, vp, pt, pos, scale)
-        t = {"ms": timer.ms(lambda: paged_ops.paged_decode_chunk(
-                 q, kp, vp, pt, pos, scale=scale, n_rep=n_rep)),
-             "plain_ms": timer.ms(lambda: paged_ref.paged_decode_chunk_ref(
-                 q, kp, vp, pt, pos, scale=scale, n_rep=n_rep)),
-             "library_ms": timer.ms(library),
-             "bound_ms": bound, "bound_by": by}
-        timings[T] = t
-        print(f"[kernels] paged_decode_chunk timed B={max_batch} T={T} "
-              f"H={H} Hkv={Hkv} D={D} P={P} ctx={pos.min().item()}.."
-              f"{pos.max().item()}: ms={t['ms']:.4f} plain_ms="
-              f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
-              f"bound_ms={bound:.5f} ({by}; {n_bytes} B, {flops} flop)")
-    rows["paged_decode_chunk"] = dict(
-        source="src/repro_torch/csrc/paged_chunk.cu",
-        replaces="src/repro/kernels/paged_attention/paged_attention.py:260",
-        max_abs_err=err, **timings[8])
+    rows["paged_decode_chunk"] = paged_chunk_rows(torch, timer, paged_ops,
+                                                  paged_ref, H, Hkv, D)
     rows["paged_decode"] = paged_decode_rows(torch, timer, paged_ops,
                                              paged_ref, H, Hkv, D)
 
@@ -513,6 +469,242 @@ def phase_kernels(torch, timer, paged_ops, paged_ref, flash_ops, flash_ref,
     rows["ssd_chunk_scan"] = ssd_kernel_rows(torch, timer, ssd_ops, ssd_ref,
                                              ssm_cfg)
     return rows
+
+
+# the paged chunk kernel's split launches (bf16, f32) and the merge, in
+# ptxas's mangled names
+PAGED_SYMBOLS = ("18paged_split_kernelI13__nv_bfloat16E",
+                 "18paged_split_kernelIfE",
+                 "19merge_splits_kernelI13__nv_bfloat16E")
+PAGED_DESIGN = ("design=split-KV, fixed splits of {S} table positions, grid "
+                "(splits, Hkv, B) = {blocks} blocks ({live} with a visible "
+                "token) + the shared merge; bf16 mma.sync m16n8k16, {R} rows "
+                "in m-tiles of 16, P as bf16 hi + lo")
+
+
+# ---------------------------------------------- wrapper A/B of two trees
+_PORTS = {}  # a port's directory -> the name it was imported under
+
+
+def load_port(src):
+    """The name of the package the port under the directory ``src``
+    (``src`` of a checkout) is imported as, ``port_ab<i>``, imported the
+    first time.  The port's own imports are relative, so two trees import
+    side by side in one process, nothing imported before is touched, and
+    each tree builds its kernels into its own ``build/``."""
+    pkg = Path(src).resolve() / "repro_torch"
+    name = _PORTS.get(pkg)
+    if name is None:
+        name = _PORTS[pkg] = f"port_ab{len(_PORTS)}"
+        spec = importlib.util.spec_from_file_location(
+            name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        port = importlib.util.module_from_spec(spec)
+        sys.modules[name] = port
+        spec.loader.exec_module(port)
+    return name
+
+
+def ab_cases(torch, kernel):
+    """The wrapper of ``kernel`` (its path in the port) and {label: (args,
+    kwargs)} of the shapes :func:`wrapper_ab` times it at, bf16: the paged
+    chunk kernel at phase 2's timed shapes (B=8, D=128, pages of 64,
+    contexts 32..544: qwen3-0.6b's T=8 and T=1, and qwen3-moe-235b's 4 kv
+    heads of 16 queries at T=8 and 16, 128 and 256 rows); the ring kernel
+    at qwen3-0.6b's ``decode_step`` (B=8, C=1024, positions 256..319) and
+    recurrentgemma-9b's wrapped ring (B=8, C=2048, one kv head of 16, D=256,
+    window 2048); the SSD chunk scan at mamba2-130m's admission (B=1,
+    S=512, H=24, P=64, N=128, chunk 256)."""
+    g = torch.Generator(device="cuda").manual_seed(28)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    if kernel == "paged_decode_chunk":
+        cases = {}
+        for label, seed, T, H, Hkv in (("T=8", 108, 8, 16, 8),
+                                       ("T=1", 101, 1, 16, 8),
+                                       ("R=128", 112, 8, 64, 4),
+                                       ("R=256", 116, 16, 64, 4)):
+            args = paged_inputs(torch, seed, 8, T, H, Hkv, 128, 64, 272, 16,
+                                (32, 544))
+            cases[label] = args, dict(scale=128 ** -0.5, n_rep=H // Hkv)
+        return "kernels.paged_attention.ops.paged_decode_chunk", cases
+    if kernel == "decode_ring":
+        cases = {}
+        for label, C, Hkv, D, window, lo, hi in (
+                ("qwen3 decode", 1024, 8, 128, None, 256, 320),
+                ("rg C=2048", 2048, 1, 256, 2048, 2048, 4096)):
+            pos = torch.randint(lo, hi, (8,), generator=g, device="cuda",
+                                dtype=torch.int32)
+            args = (randn(8, 1, 16, D), randn(8, C, Hkv, D),
+                    randn(8, C, Hkv, D), pos)
+            cases[label] = args, dict(window=window, scale=D ** -0.5,
+                                      n_rep=16 // Hkv)
+        return "kernels.paged_attention.ops.decode_attention_kernel", cases
+    if kernel == "ssd_chunk_scan":
+        B, S, H, P, N = 1, 512, 24, 64, 128
+        dt = torch.nn.functional.softplus(randn(B, S, H).float())
+        A = torch.linspace(1.0, 16.0, H, device="cuda")
+        args = (randn(B, S, H, P), dt, A, randn(B, S, N), randn(B, S, N))
+        return ("kernels.ssd.ops.ssd_chunk_scan",
+                {"B=1 S=512": (args, dict(chunk=256))})
+    raise ValueError(f"no A/B shapes for {kernel}")
+
+
+def wrapper_ab(torch, timer, srcs, kernel, rounds=4):
+    """The device time (``Timer.ms``) of ``kernel`` and its wrapper's host
+    microseconds per call (``Timer.host_us``) at the shapes of
+    :func:`ab_cases`, for the ports under ``srcs`` = [A, B] (each loaded by
+    :func:`load_port`) in one process, on the same inputs, timed in the
+    order A, B, B, A ``rounds`` times, so that like runs pair and the
+    host's speed, which differs between processes, is the same for both.
+    For two trees unpacked beside each other with ``git archive``, from the
+    root of the checkout that holds this script:
+
+        python3 -c "import torch, chip_smoke as c; c.wrapper_ab(torch, \\
+            c.Timer(torch), ['PARENT/src', 'src'], 'paged_decode_chunk')"
+
+    A shape that either tree's wrapper refuses is named and not timed.
+    Prints every reading and each tree's medians; returns the medians by
+    (src, label, "ms" or "host_us")."""
+    path, cases = ab_cases(torch, kernel)
+    module, name = path.rsplit(".", 1)
+    wrappers = {src: getattr(importlib.import_module(
+        f"{load_port(src)}.{module}"), name) for src in srcs}
+    for label, (args, kw) in list(cases.items()):
+        for src in srcs:
+            try:
+                wrappers[src](*args, **kw)
+            except ValueError as e:  # a shape one tree's wrapper refuses
+                print(f"[ab] {kernel} {src} {label}: refused ({e}); not "
+                      f"timed")
+                del cases[label]
+                break
+    got = {(src, label, what): [] for src in srcs for label in cases
+           for what in ("ms", "host_us")}
+    for _ in range(rounds):
+        for src in srcs + srcs[::-1]:
+            for label, (args, kw) in cases.items():
+                def call():
+                    return wrappers[src](*args, **kw)
+                got[src, label, "ms"].append(timer.ms(call))
+                got[src, label, "host_us"].append(timer.host_us(call))
+    for (src, label, what), xs in got.items():
+        print(f"[ab] {kernel} {src} {label} {what}: median "
+              f"{np.median(xs):.4f} of {' '.join(f'{x:.4f}' for x in xs)}")
+    return {key: float(np.median(xs)) for key, xs in got.items()}
+
+
+def paged_chunk_rows(torch, timer, paged_ops, paged_ref, H, Hkv, D):
+    """The paged chunk kernel (``paged_decode_chunk``, B1) at qwen3-0.6b's
+    serving shapes (B=8, pages of 64, tables of 16 entries from the
+    engine's default pool of 272 pages): held against its plain version in
+    bf16 at T in {1, 3, 8}; past the old 128-row cap, R = T * n_rep = 144
+    (one kv head of 16 queries, T=9) and 256 (qwen3-moe-235b's 4 kv heads
+    of 16 queries, T=16), in bf16 and float32; every row of the T=8 and
+    R=256 launches bitwise against a B=1 launch of its sequence and a T=1
+    launch of its q row at pos + t, in both types.  Timed (bf16) at T=8
+    (the row in the JSON line), T=1 and R=256, beside the plain version
+    and gather + SDPA, with the wrapper's host time per call.  Returns the
+    JSON row."""
+    n_rep, P, maxp, n_pages, B = H // Hkv, 64, 16, 272, 8
+    scale = D ** -0.5
+    err = 0.0
+    for T in (1, 3, 8):
+        q, kp, vp, pt, pos = paged_inputs(torch, T, B, T, H, Hkv, D, P,
+                                          n_pages, maxp, (0, 1024 - T))
+        got = paged_ops.paged_decode_chunk(q, kp, vp, pt, pos, scale=scale,
+                                           n_rep=n_rep)
+        torch.cuda.synchronize()
+        want = paged_ref.paged_decode_chunk_ref(q, kp, vp, pt, pos,
+                                                scale=scale, n_rep=n_rep)
+        e = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), **KERNEL_TOL)
+        print(f"[kernels] paged_decode_chunk T={T} B={B} "
+              f"max_abs_err={e:.3e} tol={KERNEL_TOL} ok={ok}")
+        check(ok and bool(torch.isfinite(got).all()),
+              f"paged_decode_chunk disagrees with its plain version (T={T})")
+        err = max(err, e)
+
+    # label: (seed, T, H, Hkv), contexts of the served prompts (32..512 +
+    # 32 new tokens): a chunked-prefill step (T=8), a decode step (T=1),
+    # and two shapes past the old cap
+    shapes = {"T=8": (108, 8, H, Hkv), "T=1": (101, 1, H, Hkv),
+              "R=144": (109, 9, 16, 1), "R=256": (116, 16, 64, 4)}
+    inputs = {label: paged_inputs(torch, seed, B, T, h, hkv, D, P, n_pages,
+                                  maxp, (32, 544))
+              for label, (seed, T, h, hkv) in shapes.items()}
+    for label in ("T=8", "R=144", "R=256"):
+        _, T, h, hkv = shapes[label]
+        q, kp, vp, pt, pos = inputs[label]
+        kw = dict(scale=scale, n_rep=h // hkv)
+        for dt, tol in ((torch.bfloat16, KERNEL_TOL),
+                        (torch.float32, dict(rtol=1e-5, atol=1e-5))):
+            qd, kd, vd = (x.to(dt) for x in (q, kp, vp))
+            got = paged_ops.paged_decode_chunk(qd, kd, vd, pt, pos, **kw)
+            want = paged_ref.paged_decode_chunk_ref(qd, kd, vd, pt, pos, **kw)
+            same_b = same_t = None
+            if label != "R=144":
+                same_b = all(torch.equal(paged_ops.paged_decode_chunk(
+                    qd[b:b + 1], kd, vd, pt[b:b + 1].contiguous(),
+                    pos[b:b + 1], **kw), got[b:b + 1]) for b in range(B))
+                same_t = all(torch.equal(paged_ops.paged_decode_chunk(
+                    qd[:, t:t + 1].contiguous(), kd, vd, pt, pos + t, **kw),
+                    got[:, t:t + 1]) for t in range(T))
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            ok = torch.allclose(got.float(), want.float(), **tol)
+            name = "bf16" if dt == torch.bfloat16 else "f32"
+            print(f"[kernels] paged_decode_chunk {name} B={B} T={T} H={h} "
+                  f"Hkv={hkv} R={T * h // hkv} max_abs_err={e:.3e} "
+                  f"tol={tol} ok={ok}; rows bitwise equal to B=1 launches: "
+                  f"{same_b}, to T=1 launches at pos + t: {same_t}")
+            check(ok and same_b is not False and same_t is not False
+                  and bool(torch.isfinite(got).all()),
+                  f"paged_decode_chunk {name} {label} disagrees with its "
+                  f"plain version or its rows depend on the batch or chunk")
+            if dt == torch.bfloat16:
+                err = max(err, e)
+
+    timings = {}
+    for label in ("T=8", "T=1", "R=256"):
+        _, T, h, hkv = shapes[label]
+        q, kp, vp, pt, pos = inputs[label]
+        kw = dict(scale=scale, n_rep=h // hkv)
+        n_bytes, flops = paged_cost(pt, pos, T, h, hkv, D, P)
+        bound, by = bound_ms(n_bytes, flops)
+        library = gather_sdpa(torch, q, kp, vp, pt, pos, scale)
+
+        def kernel():
+            return paged_ops.paged_decode_chunk(q, kp, vp, pt, pos, **kw)
+        t = {"ms": timer.ms(kernel),
+             "plain_ms": timer.ms(lambda: paged_ref.paged_decode_chunk_ref(
+                 q, kp, vp, pt, pos, **kw)),
+             "library_ms": timer.ms(library),
+             "bound_ms": bound, "bound_by": by}
+        timings[label] = t
+        host = timer.host_us(kernel)
+        S = paged_ops.SPLIT[q.dtype]
+        n_splits = paged_ops.paged_splits(maxp, P, q.dtype)
+        end = (pos + T).tolist()
+        table = pt.tolist()
+        live = hkv * sum(any(table[b][e] >= 0
+                             for e in range(s * S // P, (s + 1) * S // P)
+                             if e * P < end[b])
+                         for b in range(B) for s in range(n_splits))
+        design = PAGED_DESIGN.format(S=S, blocks=B * hkv * n_splits,
+                                     live=live, R=T * h // hkv)
+        print(f"[kernels] paged_decode_chunk timed B={B} T={T} H={h} "
+              f"Hkv={hkv} D={D} P={P} ctx={pos.min().item()}.."
+              f"{pos.max().item()}: ms={t['ms']:.4f} plain_ms="
+              f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+              f"(gather + SDPA) bound_ms={bound:.5f} ({by}; {n_bytes} B, "
+              f"{flops} flop); wrapper host us per call {host:.1f} (queued "
+              f"behind a spin) {design} [{ptxas_tag(*PAGED_SYMBOLS)}]")
+    return dict(source="src/repro_torch/csrc/paged_chunk.cu",
+                replaces="src/repro/kernels/paged_attention/"
+                         "paged_attention.py:260",
+                max_abs_err=err, **timings["T=8"])
 
 
 def paged_decode_rows(torch, timer, paged_ops, paged_ref, H, Hkv, D):
@@ -643,12 +835,13 @@ def flash_rows(torch, timer, flash_ops, flash_ref, tag, H, D, seed,
 
 # the ring kernel's split launches (bf16, f32) and the merge, in ptxas's
 # mangled names
-RING_SYMBOLS = ("tc17ring_split_kernel", "f3217ring_split_kernel",
+RING_SYMBOLS = ("17ring_split_kernelI13__nv_bfloat16E",
+                "17ring_split_kernelIfE",
                 "19merge_splits_kernelI13__nv_bfloat16E")
 RING_DESIGN = ("design=split-KV, fixed splits of {S} slots, grid (splits, "
                "Hkv, B) = {blocks} blocks ({live} with a visible slot) + "
-               "the shared merge; bf16 mma.sync m16n8k16, n_rep rows padded "
-               "to 16, P as bf16 hi + lo")
+               "the shared merge; bf16 mma.sync m16n8k16, n_rep rows in "
+               "m-tiles of 16, P as bf16 hi + lo")
 
 
 def ring_rows(torch, timer, paged_ops, paged_ref, tag, H, Hkv, D, seed,
@@ -721,7 +914,7 @@ def ring_rows(torch, timer, paged_ops, paged_ref, tag, H, Hkv, D, seed,
              "bound_ms": bound, "bound_by": by}
         timings[label] = t
         host = timer.host_us(kernel)
-        S = paged_ops.RING_SPLIT[q.dtype]
+        S = paged_ops.SPLIT[q.dtype]
         n_splits = paged_ops.ring_splits(C, q.dtype)
         vis = visible.cpu()
         live = Hkv * sum(bool(vis[b, s * S:(s + 1) * S].any())
@@ -1080,7 +1273,8 @@ def phase_serve(torch, rt, cfg, counters):
     served = dict(decode_steps=m.decode_steps, tokens=m.tokens_generated,
                   prefill_tokens=m.prefill_tokens)
     profile_window(torch, engine, cfg, Request, SamplingParams(
-        max_new_tokens=16))
+        max_new_tokens=16), names=("paged_split_kernel",
+                                   "merge_splits_kernel"))
     flash_before = counters["flash_attention_bhsd"].launches
 
     warm_toks = np.random.default_rng(1).integers(0, cfg.vocab_size, 300)

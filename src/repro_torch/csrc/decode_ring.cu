@@ -45,8 +45,9 @@
 // is bitwise the same.  Splits sized to fill the SMs would tie the
 // reduction order to B.  bf16 takes 128 slots rather than 64:
 // tools/ring_ab.py timed both on an H100 80GB HBM3 at 700 W (bf16, B =
-// 8; the 64-slot build is this source with the bf16 kSplit below and
-// ops.RING_SPLIT set to 64): 0.0230 against 0.0261 ms at recurrentgemma's
+// 8; the 64-slot build had the bf16 kSplit, now Split<__nv_bfloat16>::
+// kSplit in csrc/split_attention.cuh, and ops.RING_SPLIT, now ops.SPLIT,
+// set to 64): 0.0230 against 0.0261 ms at recurrentgemma's
 // C = 1024, 0.0301 against 0.0402 at C = 2048, and 0.0186 / 0.0345
 // against 0.0193 / 0.0358 at qwen3's decode shapes.  Twice the splits
 // double the partials the merge reads (4 MB at C = 2048) and
@@ -54,37 +55,31 @@
 // of shared memory, one an SM) still gives 128 blocks for 132 SMs.  f32
 // keeps 64: 128 f32 slots of K and V at D = 256 would need 256 KB.
 //
-// bf16: the tensor cores.  The n_rep query rows of the kv head are the m
-// dimension of mma.sync.m16n8k16 (bf16 in, f32 accumulate), zero-padded to
-// a multiple of 16 (recurrentgemma's 16 fill one m-tile, qwen3's 2 are
-// padded; more than 16 loop over m-tiles); D is zero-padded to a multiple
-// of 16 in shared memory.  Each of the 4 warps takes a quarter of the
-// split's slots for S = Q.K^T (ldmatrix fragments of Q and K); the scores,
-// scaled and masked to -inf outside visibility, go through shared memory,
-// where one warp per row takes the max and the exponentials in f32.  P enters
-// P.V as bf16 hi + lo (two mma, P kept to ~2^-16 of itself, as close to
-// the reference's f32 P.V as the tensor cores go), V through
-// ldmatrix.trans, each warp owning 16-column slices of D.
-//
-// f32: the same grid and split on the CUDA cores, no TF32, the precision
-// witness: a warp per slot reduces the n_rep dot products along D, a warp
-// per row takes its softmax, a thread per (row, column) sums P.V in slot
-// order.
+// The split block (csrc/split_attention.cuh, shared with the paged chunk
+// kernel) stages the split's K/V and walks the n_rep rows in m-tiles of
+// 16: in bf16 on the tensor cores (mma.sync.m16n8k16, n_rep rows padded to
+// a multiple of 16: recurrentgemma's 16 fill one m-tile, qwen3's 2 are
+// padded; P as bf16 hi + lo), in f32 on the CUDA cores, no TF32, the
+// precision witness.  Every row of a block sees the same slots.
 //
 // Measured with chip_smoke.py's guarded, L2-flushed timer on an NVIDIA
-// H100 80GB HBM3 at 700 W, bf16, B = 8: 0.0219 ms at recurrentgemma's
-// C = 1024 and 0.0302 at C = 2048 (one kv head of 16 queries, D = 256,
-// wrapped; repeat + SDPA 0.2057 and 0.3801, byte bound 0.0025 and
-// 0.0050), 0.0186 at qwen3's decode_step shape (C = 1024, 8 kv heads of
-// 2, D = 128, pos 264..319; bound 0.0029).  ptxas: 115 registers (bf16),
-// 40 (f32), no spill.
+// H100 80GB HBM3 at 700.00 W, bf16, B = 8, over the shared split block:
+// 0.0204 ms at recurrentgemma's C = 1024 and 0.0288 at C = 2048 (one kv
+// head of 16 queries, D = 256, wrapped; repeat + SDPA 0.2056 and 0.3796,
+// byte bound 0.00254 and 0.00505), 0.0186 at qwen3's decode_step shape
+// (C = 1024, 8 kv heads of 2, D = 128, pos 264..319; bound 0.00288) and
+// 0.0329 at pos 975..1020 (bound 0.00981); before it shared the block,
+// 0.0218, 0.0307, 0.0183 and 0.0349.  ptxas: 117 registers (bf16), 56
+// (f32), no spill; with __launch_bounds__(128) alone, not (128, 2), it
+// gave the bf16 kernel 96 registers and 16 bytes of spill stores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "ptx_sm90.cuh"
+#include "split_attention.cuh"
 #include "split_merge.cuh"
 
 namespace {
@@ -96,20 +91,7 @@ namespace {
 // then fails as an invalid argument.
 constexpr int kMaxDynamicSmem = 232448;
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+using split_attn::kThreads;
 
 // The visible slots of a row at position p: [lo0, hi0) and [lo1, hi1).
 struct Runs {
@@ -145,326 +127,63 @@ __device__ __forceinline__ Runs visible_runs(int p, int C, int window) {
   return r;
 }
 
-// A split with no visible slot: weight 0 in the merge, its acc never read.
-__device__ __forceinline__ void write_empty(float* part_ml, int64_t row0,
-                                            int n_rep, int n_splits, int j) {
-  for (int r = threadIdx.x; r < n_rep; r += kThreads) {
-    float* ml = part_ml + ((row0 + r) * n_splits + j) * 2;
-    ml[0] = -INFINITY;
-    ml[1] = 0.f;
-  }
-}
+// The n_rep query rows of kv head h of sequence b, rows b * H + h * n_rep
+// + r of q, the partials and out; each sees every visible slot.
+struct RingRows {
+  int64_t row0;
+  int n;
+  __device__ __forceinline__ int64_t row(int r) const { return row0 + r; }
+  __device__ __forceinline__ int last(int) const { return INT_MAX; }
+};
 
-// ------------------------------------------------------------------------
-// bf16: the tensor cores.
-namespace tc {
-
-constexpr int kSplit = 128;  // ring slots per split (ops.RING_SPLIT)
-constexpr int kKeysPerWarp = kSplit / kWarps;  // slots of a warp's scores
-constexpr int kSStride = kSplit + 8;  // f32 per row of the staged scores
-constexpr int kPStride = kSplit + 8;  // bf16 per row of P hi / P lo
-
-// Dynamic shared memory of one block (ops._ring_smem_bytes): q [MP, ST],
-// K and V [kSplit, ST] in bf16 with ST = DP + 8 (rows padded by 16 bytes
-// so that ldmatrix reads them without bank conflicts), one m-tile's scores
-// [16, kSStride] in f32, P hi and P lo [16, kPStride] in bf16.
-__host__ __device__ __forceinline__ int padded(int x) {
-  return (x + 15) & ~15;
-}
-size_t smem_bytes(int n_rep, int D) {
-  const size_t st = padded(D) + 8;
-  return sizeof(__nv_bfloat16) * (padded(n_rep) + 2 * kSplit) * st +
-         sizeof(float) * 16 * kSStride +
-         2 * sizeof(__nv_bfloat16) * 16 * kPStride;
-}
-
-// One block per (split j, kv head h, sequence b).  Writes, for each of the
-// group's n_rep query rows (row = b * H + h * n_rep + r), the partial state
-// of split j: part_ml[row][j] = (m, l), part_acc[row][j][:] = acc.  D must
-// be a multiple of 8 and the tensors 16-byte aligned (the wrapper checks).
-__global__ void __launch_bounds__(kThreads)
-ring_split_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ cache_k,
-                  const __nv_bfloat16* __restrict__ cache_v,
-                  const int* __restrict__ pos, float* __restrict__ part_acc,
-                  float* __restrict__ part_ml, int C, int Hkv, int n_rep,
-                  int D, int window, float scale) {
+// One block per (split j, kv head h, sequence b): the partial state of
+// split j for each of the group's n_rep query rows.  A row of D elements
+// must be a multiple of 16 bytes and the tensors 16-byte aligned (the
+// wrapper checks).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+ring_split_kernel(const T* __restrict__ q, const T* __restrict__ cache_k,
+                  const T* __restrict__ cache_v, const int* __restrict__ pos,
+                  float* __restrict__ part_acc, float* __restrict__ part_ml,
+                  int C, int Hkv, int n_rep, int D, int window, float scale) {
+  using Split = split_attn::Split<T>;
+  constexpr int S = Split::kSplit;
   const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int n_splits = gridDim.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;  // fragment row and column pair
-  const int64_t row0 = static_cast<int64_t>(b) * Hkv * n_rep + h * n_rep;
-  const int t0 = j * kSplit, t1 = min(C, t0 + kSplit);
+  const RingRows rows{static_cast<int64_t>(b) * Hkv * n_rep + h * n_rep,
+                      n_rep};
+  const int t0 = j * S, t1 = min(C, t0 + S);
   const Runs runs = visible_runs(pos[b], C, window);
   if (runs.count(t0, t1) == 0) {  // block-uniform
-    write_empty(part_ml, row0, n_rep, n_splits, j);
+    split_attn::write_empty(rows, part_ml, n_splits, j);
     return;
   }
-
-  const int DP = padded(D), ST = DP + 8, MP = padded(n_rep);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + MP * ST;
-  __nv_bfloat16* vs = ks + kSplit * ST;
-  float* ss = reinterpret_cast<float*>(vs + kSplit * ST);
-  __nv_bfloat16* ph = reinterpret_cast<__nv_bfloat16*>(ss + 16 * kSStride);
-  __nv_bfloat16* pl = ph + 16 * kPStride;
-
-  // q's rows and the split's visible K/V rows, 16-byte copies all in
-  // flight; padding rows and columns and invisible slots zero-filled
-  const int cpr = DP / 8;  // 16-byte chunks per staged row
-  const __nv_bfloat16* qb = q + row0 * D;
-  for (int i = tid; i < MP * cpr; i += kThreads) {
-    const int r = i / cpr, c = (i % cpr) * 8;
-    const bool ok = r < n_rep && c < D;
-    cp_async16(qs + r * ST + c, ok ? qb + r * D + c : qb, ok);
-  }
+  int64_t* off = reinterpret_cast<int64_t*>(smem_raw);
   const int64_t tok_stride = static_cast<int64_t>(Hkv) * D;
   const int64_t base = (static_cast<int64_t>(b) * C * Hkv + h) * D;
-  for (int i = tid; i < kSplit * cpr; i += kThreads) {
-    const int r = i / cpr, c = (i % cpr) * 8;
-    const int slot = t0 + r;
-    const bool ok = slot < t1 && c < D && runs.has(slot);
-    const int64_t off = ok ? base + slot * tok_stride + c : 0;
-    cp_async16(ks + r * ST + c, cache_k + off, ok);
-    cp_async16(vs + r * ST + c, cache_v + off, ok);
+  for (int c = threadIdx.x; c < S; c += kThreads) {
+    const int slot = t0 + c;
+    off[c] = slot < t1 && runs.has(slot) ? base + slot * tok_stride : -1;
   }
-  cp_async_commit();
-  cp_async_wait<0>();
   __syncthreads();
-
-  // fragment addresses: A rows (l % 16), column 8 * (l / 16); B rows of K
-  // (not transposed) and of V (transposed), as in the flash kernel
-  const int a_row = lane & 15, a_col = (lane >> 4) << 3;
-  const int k_row = ((lane >> 4) << 3) + (lane & 7);
-  const int k_col = ((lane >> 3) & 1) << 3;
-  const int v_row = (lane & 7) + (((lane >> 3) & 1) << 3);
-  const int v_col = (lane >> 4) << 3;
-  const int key0 = warp * kKeysPerWarp;
-
-  for (int m0 = 0; m0 < n_rep; m0 += 16) {
-    // S = Q . K^T: the m-tile's 16 rows x the warp's slots, f32
-    float s[kKeysPerWarp / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kKeysPerWarp / 8; ++nt)
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    const uint32_t q_frag = smem_addr(qs + (m0 + a_row) * ST + a_col);
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4(a, q_frag + kk * 32);
-#pragma unroll
-      for (int nt = 0; nt < kKeysPerWarp / 8; nt += 2) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, smem_addr(ks + (key0 + nt * 8 + k_row) * ST +
-                                  kk * 16 + k_col));
-        mma_bf16(s[nt], a, bk[0], bk[1]);
-        mma_bf16(s[nt + 1], a, bk[2], bk[3]);
-      }
-    }
-    // scaled, masked to -inf outside visibility, into shared memory
-#pragma unroll
-    for (int nt = 0; nt < kKeysPerWarp / 8; ++nt) {
-      const int col = key0 + nt * 8 + 2 * t;
-      const bool ok0 = t0 + col < t1 && runs.has(t0 + col);
-      const bool ok1 = t0 + col + 1 < t1 && runs.has(t0 + col + 1);
-      *reinterpret_cast<float2*>(ss + g * kSStride + col) = make_float2(
-          ok0 ? s[nt][0] * scale : -INFINITY,
-          ok1 ? s[nt][1] * scale : -INFINITY);
-      *reinterpret_cast<float2*>(ss + (g + 8) * kSStride + col) =
-          make_float2(ok0 ? s[nt][2] * scale : -INFINITY,
-                      ok1 ? s[nt][3] * scale : -INFINITY);
-    }
-    __syncthreads();
-
-    // the split's softmax state, one warp per row; P split into bf16 hi +
-    // lo.  Every row sees a visible slot, so its max is finite.
-    for (int r = warp; r < 16; r += kWarps) {
-      const float* sr = ss + r * kSStride;
-      float mx = -INFINITY;
-      for (int c = 2 * lane; c < kSplit; c += 64) {
-        const float2 x = *reinterpret_cast<const float2*>(sr + c);
-        mx = fmaxf(mx, fmaxf(x.x, x.y));
-      }
-      mx = warp_max(mx);
-      float sum = 0.f;
-      for (int c = 2 * lane; c < kSplit; c += 64) {
-        const float2 x = *reinterpret_cast<const float2*>(sr + c);
-        const float p0 = expf(x.x - mx), p1 = expf(x.y - mx);
-        sum += p0 + p1;
-        uint32_t hi, lo;
-        split(p0, p1, hi, lo);
-        *reinterpret_cast<uint32_t*>(ph + r * kPStride + c) = hi;
-        *reinterpret_cast<uint32_t*>(pl + r * kPStride + c) = lo;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0 && m0 + r < n_rep) {
-        float* ml = part_ml + ((row0 + m0 + r) * n_splits + j) * 2;
-        ml[0] = mx;
-        ml[1] = sum;
-      }
-    }
-    __syncthreads();
-
-    // acc = P . V: warp w owns 16-column slices w, w + 4, ... of D
-    uint32_t ah[kSplit / 16][4], al[kSplit / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kSplit / 16; ++kk) {
-      ldmatrix_x4(ah[kk], smem_addr(ph + a_row * kPStride + kk * 16 + a_col));
-      ldmatrix_x4(al[kk], smem_addr(pl + a_row * kPStride + kk * 16 + a_col));
-    }
-    for (int dp = warp; dp < DP / 16; dp += kWarps) {
-      float o[2][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < kSplit / 16; ++kk) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, smem_addr(vs + (kk * 16 + v_row) * ST +
-                                        dp * 16 + v_col));
-        mma_bf16(o[0], ah[kk], bv[0], bv[1]);
-        mma_bf16(o[1], ah[kk], bv[2], bv[3]);
-        mma_bf16(o[0], al[kk], bv[0], bv[1]);
-        mma_bf16(o[1], al[kk], bv[2], bv[3]);
-      }
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int col = dp * 16 + n * 8 + 2 * t;
-        if (col >= D) continue;  // D is a multiple of 8
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = m0 + g + 8 * half;
-          if (r < n_rep)
-            *reinterpret_cast<float2*>(
-                part_acc + ((row0 + r) * n_splits + j) * D + col) =
-                make_float2(o[n][2 * half], o[n][2 * half + 1]);
-        }
-      }
-    }
-    __syncthreads();  // the next m-tile rewrites the scores and P
-  }
+  Split::attend(smem_raw, q, cache_k, cache_v, rows, part_acc, part_ml,
+                n_splits, j, D, scale);
 }
-
-}  // namespace tc
-
-// ------------------------------------------------------------------------
-// f32: the CUDA cores.
-namespace f32 {
-
-constexpr int kSplit = 64;  // ring slots per split (ops.RING_SPLIT)
-
-// Dynamic shared memory of one block (ops._ring_smem_bytes): K and V
-// [kSplit, D], q [n_rep, D] and the scores [n_rep, kSplit], all f32.
-size_t smem_bytes(int n_rep, int D) {
-  return sizeof(float) * (2 * static_cast<size_t>(kSplit) * D +
-                          static_cast<size_t>(n_rep) * D +
-                          static_cast<size_t>(n_rep) * kSplit);
-}
-
-// The grid and outputs of tc::ring_split_kernel.  D must be a multiple of
-// 4 and the tensors 16-byte aligned (the wrapper checks).
-__global__ void __launch_bounds__(kThreads)
-ring_split_kernel(const float* __restrict__ q,
-                  const float* __restrict__ cache_k,
-                  const float* __restrict__ cache_v,
-                  const int* __restrict__ pos, float* __restrict__ part_acc,
-                  float* __restrict__ part_ml, int C, int Hkv, int n_rep,
-                  int D, int window, float scale) {
-  const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int n_splits = gridDim.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t row0 = static_cast<int64_t>(b) * Hkv * n_rep + h * n_rep;
-  const int t0 = j * kSplit, t1 = min(C, t0 + kSplit);
-  const Runs runs = visible_runs(pos[b], C, window);
-  if (runs.count(t0, t1) == 0) {  // block-uniform
-    write_empty(part_ml, row0, n_rep, n_splits, j);
-    return;
-  }
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);  // [kSplit, D]
-  float* vs = ks + kSplit * D;                     // [kSplit, D]
-  float* qs = vs + kSplit * D;                     // [n_rep, D]
-  float* ss = qs + n_rep * D;                      // [n_rep, kSplit]
-
-  const int cpr = D / 4;  // 16-byte chunks per row
-  const float* qb = q + row0 * D;
-  for (int i = tid; i < n_rep * cpr; i += kThreads)
-    cp_async16(qs + i * 4, qb + i * 4, true);
-  const int64_t tok_stride = static_cast<int64_t>(Hkv) * D;
-  const int64_t base = (static_cast<int64_t>(b) * C * Hkv + h) * D;
-  for (int i = tid; i < kSplit * cpr; i += kThreads) {
-    const int r = i / cpr, c = (i % cpr) * 4;
-    const int slot = t0 + r;
-    const bool ok = slot < t1 && runs.has(slot);
-    const int64_t off = ok ? base + slot * tok_stride + c : 0;
-    cp_async16(ks + r * D + c, cache_k + off, ok);
-    cp_async16(vs + r * D + c, cache_v + off, ok);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // scores: one warp per slot, lanes along D, n_rep shuffle reductions
-  for (int c = warp; c < kSplit; c += kWarps) {
-    const bool ok = t0 + c < t1 && runs.has(t0 + c);  // warp-uniform
-    const float* kc = ks + c * D;
-    for (int r = 0; r < n_rep; ++r) {
-      float dot = 0.f;
-      if (ok) {
-        const float* qr = qs + r * D;
-        for (int d = lane; d < D; d += 32) dot += qr[d] * kc[d];
-        dot = warp_sum(dot);
-      }
-      if (lane == 0) ss[r * kSplit + c] = ok ? dot * scale : -INFINITY;
-    }
-  }
-  __syncthreads();
-
-  // the split's softmax state, one warp per row
-  for (int r = warp; r < n_rep; r += kWarps) {
-    float* sr = ss + r * kSplit;
-    float mx = -INFINITY;
-    for (int c = lane; c < kSplit; c += 32) mx = fmaxf(mx, sr[c]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int c = lane; c < kSplit; c += 32) {
-      const float p = expf(sr[c] - mx);
-      sr[c] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      float* ml = part_ml + ((row0 + r) * n_splits + j) * 2;
-      ml[0] = mx;
-      ml[1] = sum;
-    }
-  }
-  __syncthreads();
-
-  // acc[r][d] = sum over the split's slots, in order, of p[r][c] v[c][d]
-  for (int i = tid; i < n_rep * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const float* pr = ss + r * kSplit;
-    float a = 0.f;
-    for (int c = 0; c < kSplit; ++c) a += pr[c] * vs[c * D + d];
-    part_acc[((row0 + r) * n_splits + j) * D + d] = a;
-  }
-}
-
-}  // namespace f32
 
 template <typename T>
-using SplitKernel = void (*)(const T*, const T*, const T*, const int*,
-                             float*, float*, int, int, int, int, int, float);
-
-template <typename T>
-int launch(SplitKernel<T> kernel, int split, size_t smem, const void* q,
-           const void* k, const void* v, const void* pos, float* part_acc,
-           float* part_ml, void* out, int B, int C, int Hkv, int n_rep,
-           int D, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* pos,
+           float* part_acc, float* part_ml, void* out, int B, int C,
+           int Hkv, int n_rep, int D, int window, float scale,
+           cudaStream_t stream) {
+  using Split = split_attn::Split<T>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem);
+      ring_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxDynamicSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_splits = (C + split - 1) / split;
-  kernel<<<dim3(n_splits, Hkv, B), kThreads, smem, stream>>>(
+  const int n_splits = (C + Split::kSplit - 1) / Split::kSplit;
+  ring_split_kernel<T><<<dim3(n_splits, Hkv, B), kThreads,
+                         Split::smem_bytes(D), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(pos), part_acc,
       part_ml, C, Hkv, n_rep, D, window, scale);
@@ -494,13 +213,10 @@ extern "C" int decode_ring_attention(const void* q, const void* cache_k,
   float* acc = static_cast<float*>(part_acc);
   float* ml = static_cast<float*>(part_ml);
   if (is_bf16)
-    return launch<__nv_bfloat16>(tc::ring_split_kernel, tc::kSplit,
-                                 tc::smem_bytes(n_rep, D), q, cache_k,
-                                 cache_v, pos, acc, ml, out, B, C, Hkv,
-                                 n_rep, D, window, scale, s);
-  return launch<float>(f32::ring_split_kernel, f32::kSplit,
-                       f32::smem_bytes(n_rep, D), q, cache_k, cache_v, pos,
-                       acc, ml, out, B, C, Hkv, n_rep, D, window, scale, s);
+    return launch<__nv_bfloat16>(q, cache_k, cache_v, pos, acc, ml, out, B,
+                                 C, Hkv, n_rep, D, window, scale, s);
+  return launch<float>(q, cache_k, cache_v, pos, acc, ml, out, B, C, Hkv,
+                       n_rep, D, window, scale, s);
 }
 
 extern "C" const char* decode_ring_error_string(int code) {

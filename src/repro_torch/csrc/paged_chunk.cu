@@ -1,37 +1,91 @@
-// Paged chunk attention for Hopper (sm_90a).
+// Split-KV paged chunk attention for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `paged_decode_chunk` (`_paged_chunk_kernel`) of
 // src/repro/kernels/paged_attention/paged_attention.py: T-token chunk
 // attention straight over the paged KV pool, the attention of every decode
 // and chunked-prefill step of the serving engine.
 //
-//   q          [B, T, H, D]            bf16 or f32
+//   q          [B, T, H, D]            bf16 or f32, H = Hkv * n_rep
 //   k/v pages  [n_pages, P, Hkv, D]    same type as q
-//   page_table [B, max_pages] int32    -1 = no page (skipped)
+//   page_table [B, max_pages] int32    -1 = no page (its tokens are unseen)
 //   pos        [B] int32               first chunk position of each sequence
 //   out        [B, T, H, D]
 //
-// The GQA group is folded into R = T * n_rep query rows per (b, kv-head);
-// row r is chunk token t = r / n_rep of query head h * n_rep + r % n_rep and
-// attends pool tokens tok <= pos[b] + t.  The chunk's own K/V is already in
-// the pages (write-then-attend).  Softmax state (m, l, acc) is f32 and P.V
-// stays in f32, as on the TPU; out = acc / max(l, 1e-30).  Rows with no
-// visible token return garbage, as on the TPU; the engine never reads them.
+// The GQA group is folded into R = T * n_rep query rows per (b, kv head);
+// row r = t * n_rep + rep (the reference's `qg` grouping) is chunk token t
+// of query head h * n_rep + rep and sees table position tok (token tok % P
+// of page page_table[b][tok / P]) when tok <= pos[b] + t and that entry is
+// not -1.  The chunk's own K/V is already in the pages (write-then-attend).
+// Softmax state is f32; out = acc / max(l, 1e-30), rounded to q's type
+// once.  A row with no visible token returns zeros (the TPU kernel returns
+// garbage there; the engine never reads such rows).
 //
-// What bounds it on the H100: bytes.  Each (b, kv-head) reads its pages of
-// K and V once, ~4 * ctx * D bytes, against 4 * R * ctx * D flops: at R <= 16
-// that is at most 8 flops per byte, far below the card's ~295 bf16 flops per
-// byte.  The design therefore reads every K/V byte from device memory once:
-// one block per (b, kv-head) walks that sequence's pages in order, stages
-// each [P, D] page tile of K and V in shared memory with 16-byte loads, and
-// lets all R query rows of the group use the staged tile.  Only the pages
-// up to ceil((pos + T) / P) are visited; the page table entry is read in the
-// block (the TPU's scalar prefetch).  A later version overlaps the next
-// page's loads with this page's math and splits long contexts across blocks.
+// What bounds it on the H100: bytes.  Each (b, kv head) must read the K and
+// V of its visible tokens once, 4 * ctx * D bytes in bf16, against
+// 4 * R * ctx * D flops: at qwen3's R = 16 (T = 8, n_rep 2) 16 flops per
+// byte, far below the card's ~295 bf16 flops per byte.  One block per
+// (b, kv head) walking its pages, as the TPU kernel's grid does, gives 64
+// blocks on 132 SMs at the serving batch, each streaming its pages alone.
+// So the table's positions are cut into fixed splits of S tokens (S = 128
+// in bf16, 64 in f32, the split tile of csrc/split_attention.cuh, shared
+// with the ring kernel), split s holding positions [S s, min(max_pages P,
+// S s + S)), and the grid is (n_splits, Hkv, B): 8 x 8 x 8 = 512 blocks at
+// qwen3's serving shape (P = 64, 16 table entries) where there were 64.
+// For every page size that divides S (the engine's 64, the tests' 4..64) a
+// split is S / P whole table entries; a larger page spans several splits
+// and one that does not divide S lets a split straddle two pages, so the
+// tile stays S tokens at any P and shared memory depends on D and the type
+// alone.  A split wholly past pos + T - 1, or whose entries are all -1,
+// writes (m = -inf, l = 0) for its rows and exits.  Otherwise each thread
+// looks up one column's page and stores the offset of its K/V row, ((page
+// P + tok % P) Hkv + h) D, in shared memory, or -1 for a column on a -1
+// entry or past pos + T - 1, the largest position a row of the block sees.
+// The split block (csrc/split_attention.cuh) copies the columns' K and V
+// rows with 16-byte cp.async, zero-filling the -1 columns without reading
+// them (so a stale or NaN token past a row's position, or a page never
+// written, never meets 0 x NaN in P.V), then walks the R rows in m-tiles of
+// 16, staging one q tile at a time against the staged K/V, so R has no cap:
+// in bf16 q.K^T and P.V on mma.sync.m16n8k16 (P as bf16 hi + lo, V through
+// ldmatrix.trans; qwen3's T = 8 rows fill one m-tile, T = 1's 2 are
+// padded), in f32 on the CUDA cores, no TF32.  A second launch,
+// `merge_splits_kernel` (csrc/split_merge.cuh), weighs each row's splits by
+// exp(m_s - max m) in split order and writes out [B, T, H, D]: the
+// partials' row (b T + t) H + head is out's row.
+//
+// The masking hazard: rows of one m-tile see different numbers of tokens
+// (row r's last column is pos + r / n_rep - S s), so the mask is per (row,
+// column), and a row may see none of a split another row of its block sees:
+// it writes l = 0, and its exponent subtracts 0 in place of its -inf max, so
+// no exp(-inf - (-inf)) arises; padding rows of the last m-tile are zero in
+// q, see nothing and are never written.
+//
+// Why the split is fixed: the layout depends on P and the type alone, never
+// on B, T, pos or the table's contents, and each row's scores, softmax and
+// P.V depend on its own q row and the split's columns only.  So a row's
+// output is bitwise the same at any batch, and row t of a T-token launch at
+// pos equals a one-token launch of its q row at pos + t over the same pages
+// (which speculative decoding's verification chunk needs).  Splits sized to
+// fill the SMs would tie the reduction order to B and T.  128 tokens is
+// the ring kernel's bf16 split, which it timed faster than 64
+// (csrc/decode_ring.cu); no other size was timed here.
+//
+// ptxas (-Xptxas -v, __launch_bounds__(128, 2)): 124 registers in bf16, 64
+// in f32, 32 for the merge, no spill.  Measured with chip_smoke.py's
+// guarded, L2-flushed timer on an NVIDIA H100 80GB HBM3 at 700.00 W, bf16,
+// qwen3-0.6b's serving shapes (B = 8, 8 kv heads of 2, D = 128, P = 64,
+// 16 table entries, contexts 32..544): 0.0192 ms at T = 8 (the one block
+// per (b, kv head) kernel before it: 0.1456; gather + SDPA 0.1449; byte
+// bound 0.00249) and 0.0200 at T = 1 (was 0.0550; gather + SDPA 0.1362;
+// bound 0.00298); past the old cap, R = 256 (T = 16, 4 kv heads of 16)
+// 0.0815 ms (gather + SDPA 0.4123; bound 0.00296), where the 16 m-tiles
+// of a block run one after another.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "split_attention.cuh"
+#include "split_merge.cuh"
 
 namespace {
 
@@ -42,195 +96,117 @@ namespace {
 // then fails as an invalid argument.
 constexpr int kMaxDynamicSmem = 232448;
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using split_attn::kThreads;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// The R = T * n_rep query rows of kv head h of sequence b: row r is chunk
+// token t = r / n_rep of query head h * n_rep + r % n_rep, row (b T + t) H
+// + h n_rep + r % n_rep of q, the partials and out, and sees split columns
+// up to pos + t - t0.
+struct ChunkRows {
+  int64_t bT;  // b * T
+  int n, n_rep, H, h, last0;  // last0 = pos - t0
+  __device__ __forceinline__ int64_t row(int r) const {
+    const int t = r / n_rep;
+    return (bT + t) * H + h * n_rep + (r - t * n_rep);
+  }
+  __device__ __forceinline__ int last(int r) const {
+    return last0 + r / n_rep;
+  }
+};
+
+// One block per (split j, kv head h, sequence b): the partial state of
+// split j for each of the block's R query rows.  A row of D elements must
+// be a multiple of 16 bytes and the tensors 16-byte aligned (the wrapper
+// checks).
 template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// One 16-byte load of VEC consecutive elements, widened to f32 in shared
-// memory.  Callers guarantee 16-byte alignment (D % VEC == 0 and aligned
-// base pointers, checked by the Python wrapper).
-template <typename T>
-__device__ __forceinline__ void load_vec(float* dst, const T* src) {
-  constexpr int VEC = 16 / sizeof(T);
-  uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const T* vals = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) dst[e] = to_f(vals[e]);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-paged_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+__global__ void __launch_bounds__(kThreads, 2)
+paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                    const T* __restrict__ v_pages,
                    const int* __restrict__ page_table,
-                   const int* __restrict__ pos, T* __restrict__ out, int Tq,
-                   int Hkv, int n_rep, int D, int P, int max_pages,
-                   float scale) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int R = Tq * n_rep;
-  const int H = Hkv * n_rep;
-  const int ds = D + 1;  // odd row stride: column reads hit distinct banks
-
-  extern __shared__ float smem[];
-  float* qs = smem;            // [R, ds]
-  float* ks = qs + R * ds;     // [P, ds]
-  float* vs = ks + P * ds;     // [P, D]
-  float* ss = vs + P * D;      // [R, P] scores, then probabilities
-  float* acc = ss + R * P;     // [R, D]
-  float* m = acc + R * D;      // [R]
-  float* l = m + R;            // [R]
-  float* alpha = l + R;        // [R]
-
-  const int vpr = D / VEC;  // vectors per row
-  for (int i = tid; i < R * vpr; i += kThreads) {
-    const int r = i / vpr, c = (i % vpr) * VEC;
-    const int t = r / n_rep, head = h * n_rep + r % n_rep;
-    load_vec(qs + r * ds + c, q + ((static_cast<int64_t>(b) * Tq + t) * H + head) * D + c);
+                   const int* __restrict__ pos, float* __restrict__ part_acc,
+                   float* __restrict__ part_ml, int Tq, int Hkv, int n_rep,
+                   int D, int P, int max_pages, float scale) {
+  using Split = split_attn::Split<T>;
+  constexpr int S = Split::kSplit;
+  const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int n_splits = gridDim.x;
+  const int p0 = pos[b], t0 = j * S;
+  const ChunkRows rows{static_cast<int64_t>(b) * Tq, Tq * n_rep, n_rep,
+                       Hkv * n_rep, h, p0 - t0};
+  // positions [t0, end) may be seen by some row of the block
+  const int end = min(min(t0 + S, max_pages * P), p0 + Tq);
+  if (end <= t0) {  // block-uniform
+    split_attn::write_empty(rows, part_ml, n_splits, j);
+    return;
   }
-  for (int i = tid; i < R * D; i += kThreads) acc[i] = 0.f;
-  for (int r = tid; r < R; r += kThreads) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int64_t* off = reinterpret_cast<int64_t*>(smem_raw);
+  const int* table = page_table + static_cast<int64_t>(b) * max_pages;
+  bool any = false;
+  for (int c = threadIdx.x; c < S; c += kThreads) {
+    const int tok = t0 + c;
+    const int page = tok < end ? table[tok / P] : -1;
+    off[c] = page < 0 ? -1
+                      : ((static_cast<int64_t>(page) * P + tok % P) * Hkv +
+                         h) * D;
+    any |= page >= 0;
   }
-
-  const int p0 = pos[b];
-  const int n_visit = min(max_pages, (p0 + Tq + P - 1) / P);
-  const int64_t tok_stride = static_cast<int64_t>(Hkv) * D;
-  for (int j = 0; j < n_visit; ++j) {
-    const int page = page_table[static_cast<int64_t>(b) * max_pages + j];
-    if (page < 0) continue;  // block-uniform
-    __syncthreads();         // the previous page's tiles are consumed
-    const int64_t base = (static_cast<int64_t>(page) * P * Hkv + h) * D;
-    for (int i = tid; i < P * vpr; i += kThreads) {
-      const int t = i / vpr, c = (i % vpr) * VEC;
-      load_vec(ks + t * ds + c, k_pages + base + t * tok_stride + c);
-      load_vec(vs + t * D + c, v_pages + base + t * tok_stride + c);
-    }
-    __syncthreads();
-
-    // scores: s[r][t] = (q_r . k_t) * scale, masked per row by position
-    for (int i = tid; i < R * P; i += kThreads) {
-      const int r = i / P, t = i % P;
-      const float* qr = qs + r * ds;
-      const float* kt = ks + t * ds;
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s += qr[d] * kt[d];
-      const int tok = j * P + t;
-      const int qpos = p0 + r / n_rep;
-      ss[i] = tok <= qpos ? s * scale : kNegInf;
-    }
-    __syncthreads();
-
-    // online softmax update, one warp per row
-    for (int r = warp; r < R; r += kWarps) {
-      float* sr = ss + r * P;
-      float mx = kNegInf;
-      for (int t = lane; t < P; t += 32) mx = fmaxf(mx, sr[t]);
-      mx = warp_max(mx);
-      const float m_prev = m[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < P; t += 32) {
-        const float p = expf(sr[t] - m_new);
-        sr[t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float a = expf(m_prev - m_new);
-        alpha[r] = a;
-        l[r] = a * l[r] + sum;
-        m[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p @ v, all in f32
-    for (int i = tid; i < R * D; i += kThreads) {
-      const int r = i / D, d = i % D;
-      const float* pr = ss + r * P;
-      float a = acc[i] * alpha[r];
-      for (int t = 0; t < P; ++t) a += pr[t] * vs[t * D + d];
-      acc[i] = a;
-    }
+  if (!__syncthreads_or(any)) {  // every entry of the split is -1
+    split_attn::write_empty(rows, part_ml, n_splits, j);
+    return;
   }
-  __syncthreads();
-
-  for (int i = tid; i < R * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int t = r / n_rep, head = h * n_rep + r % n_rep;
-    out[((static_cast<int64_t>(b) * Tq + t) * H + head) * D + d] =
-        from_f<T>(acc[i] / fmaxf(l[r], 1e-30f));
-  }
+  Split::attend(smem_raw, q, k_pages, v_pages, rows, part_acc, part_ml,
+                n_splits, j, D, scale);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* pt,
-           const void* pos, void* out, int B, int Tq, int Hkv, int n_rep,
-           int D, int P, int max_pages, float scale, cudaStream_t stream) {
-  const int R = Tq * n_rep;
-  const size_t smem = sizeof(float) *
-      (static_cast<size_t>(R) * (D + 1) + static_cast<size_t>(P) * (D + 1) +
-       static_cast<size_t>(P) * D + static_cast<size_t>(R) * P +
-       static_cast<size_t>(R) * D + 3 * static_cast<size_t>(R));
+           const void* pos, float* part_acc, float* part_ml, void* out,
+           int B, int Tq, int Hkv, int n_rep, int D, int P, int max_pages,
+           float scale, cudaStream_t stream) {
+  using Split = split_attn::Split<T>;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      paged_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxDynamicSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  paged_chunk_kernel<T><<<dim3(B, Hkv), kThreads, smem, stream>>>(
+  const int n_splits = (max_pages * P + Split::kSplit - 1) / Split::kSplit;
+  paged_split_kernel<T><<<dim3(n_splits, Hkv, B), kThreads,
+                          Split::smem_bytes(D), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(pt),
-      static_cast<const int*>(pos), static_cast<T*>(out), Tq, Hkv, n_rep, D,
-      P, max_pages, scale);
+      static_cast<const int*>(pos), part_acc, part_ml, Tq, Hkv, n_rep, D, P,
+      max_pages, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  split_merge::merge_splits_kernel<T>
+      <<<B * Tq * Hkv * n_rep, split_merge::kThreads, 0, stream>>>(
+          part_acc, part_ml, static_cast<T*>(out), n_splits, D);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns the CUDA error code of the launch (0 = launched).
+// part_acc [B*T*H, n_splits, D] and part_ml [B*T*H, n_splits, 2] are f32
+// scratch the caller allocates, n_splits = ceil(max_pages * P / split) with
+// splits of 128 tokens in bf16 and 64 in f32 (ops.paged_splits).  Launches
+// the split kernel and the merge on `stream`; returns the first CUDA error
+// (0 = both launched).
 extern "C" int paged_chunk_attention(const void* q, const void* k_pages,
                                      const void* v_pages,
                                      const void* page_table, const void* pos,
-                                     void* out, int B, int Tq, int Hkv,
-                                     int n_rep, int D, int P, int max_pages,
-                                     float scale, int is_bf16, void* stream) {
+                                     void* part_acc, void* part_ml, void* out,
+                                     int B, int Tq, int Hkv, int n_rep, int D,
+                                     int P, int max_pages, float scale,
+                                     int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* acc = static_cast<float*>(part_acc);
+  float* ml = static_cast<float*>(part_ml);
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, page_table, pos, out,
-                                 B, Tq, Hkv, n_rep, D, P, max_pages, scale,
-                                 s);
-  return launch<float>(q, k_pages, v_pages, page_table, pos, out, B, Tq, Hkv,
-                       n_rep, D, P, max_pages, scale, s);
+    return launch<__nv_bfloat16>(q, k_pages, v_pages, page_table, pos, acc,
+                                 ml, out, B, Tq, Hkv, n_rep, D, P, max_pages,
+                                 scale, s);
+  return launch<float>(q, k_pages, v_pages, page_table, pos, acc, ml, out, B,
+                       Tq, Hkv, n_rep, D, P, max_pages, scale, s);
 }
 
 extern "C" const char* paged_chunk_error_string(int code) {

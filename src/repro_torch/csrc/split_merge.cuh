@@ -1,6 +1,6 @@
 // The merge pass of split-KV attention, shared by the port's split-KV
-// decode kernels (csrc/paged_decode.cu, csrc/decode_ring.cu).  Every
-// csrc/*.cu that includes it still builds into a library of its own
+// kernels (csrc/paged_decode.cu, csrc/decode_ring.cu, csrc/paged_chunk.cu).
+// Every csrc/*.cu that includes it still builds into a library of its own
 // (kernels/_build.py hashes the header into each library's name).
 
 #pragma once

@@ -115,6 +115,5 @@ def current_stream(device: torch.device) -> int:
     """The raw handle of ``device``'s current CUDA stream, for launches made
     with ``device`` current: ``torch.cuda.current_stream().cuda_stream``
     without the ``torch.cuda.Stream`` object that call builds each time
-    (host time every wrapper would pay a call; ``tools/ring_ab.py`` times
-    both)."""
+    (host time every wrapper would pay a call)."""
     return torch._C._cuda_getCurrentRawStream(device.index)

@@ -1,14 +1,16 @@
-"""Wrappers of the decode attention kernels: paged chunk attention
-(``csrc/paged_chunk.cu``), one-token split-KV paged decode
+"""Wrappers of the decode attention kernels: split-KV paged chunk
+attention (``csrc/paged_chunk.cu``), one-token split-KV paged decode
 (``csrc/paged_decode.cu``) and split-KV ring decode attention
-(``csrc/decode_ring.cu``); the two split-KV kernels share their merge
+(``csrc/decode_ring.cu``).  The paged chunk and ring kernels share their
+split block (``csrc/split_attention.cuh``) and its fixed split of
+``SPLIT[dtype]`` keys; all three share their merge
 (``csrc/split_merge.cuh``).
 
 A CUDA tensor launches the hand-written kernel and the call raises if it
 cannot; a CPU tensor takes the plain version in :mod:`.ref`.  Nothing else
 chooses between them.  ``paged_decode_chunk.launches``,
 ``paged_decode.launches`` and ``decode_attention_kernel.launches`` count
-the kernels' launches.
+the wrappers' calls that launched their kernels.
 """
 
 from __future__ import annotations
@@ -24,22 +26,77 @@ from .ref import decode_ring_ref, paged_decode_chunk_ref, paged_decode_ref
 
 _SMEM_LIMIT = 232_448     # bytes of shared memory a block may use (H100)
 
+# keys of one split of the split-KV kernels (B1 and B4), by type: 128 on
+# the tensor cores (bf16), 64 on the CUDA cores (f32, whose 128 keys of K
+# and V would not fit in shared memory at D = 256) (must match
+# ``Split<T>::kSplit`` in csrc/split_attention.cuh)
+SPLIT = {torch.bfloat16: 128, torch.float32: 64}
+
+
+def _split_smem_bytes(D: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one split block (must match
+    ``Split<T>::smem_bytes``): the split's key offsets (int64), then in
+    bf16 one 16-row q tile and the split's K and V rows, padded to a
+    multiple of 16 columns plus 8, one m-tile's f32 scores and P hi / lo;
+    in f32 K, V, one 16-row q tile and its scores.  It depends on D and the
+    type alone, not on the query rows."""
+    S = SPLIT[dtype]
+    if dtype == torch.bfloat16:
+        st = -(-D // 16) * 16 + 8
+        return 8 * S + 2 * (16 + 2 * S) * st + 4 * 16 * (S + 8) \
+            + 2 * 2 * 16 * (S + 8)
+    return 8 * S + 4 * (2 * S * D + 16 * D + 16 * S)
+
+
+@functools.lru_cache(maxsize=None)
+def _check_split_block(D: int, dtype: torch.dtype) -> None:
+    smem = _split_smem_bytes(D, dtype)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"a split of {SPLIT[dtype]} keys of head dim {D} "
+                         f"needs {smem} bytes of shared memory (limit "
+                         f"{_SMEM_LIMIT})")
+
+
+def _split_scratch(rows: int, n_splits: int, D: int, device):
+    """One f32 buffer: ``part_acc`` [rows, n_splits, D], then ``part_ml``
+    [rows, n_splits, 2].  Returns it and the addresses of the two."""
+    scratch = torch.empty(rows * n_splits * (D + 2), dtype=torch.float32,
+                          device=device)
+    part_acc = scratch.data_ptr()
+    return scratch, part_acc, part_acc + 4 * rows * n_splits * D
+
+
+def paged_splits(max_pages: int, P: int, dtype: torch.dtype) -> int:
+    """Splits of a table of ``max_pages`` entries of P-token pages: split
+    s holds the table's positions [s * S, min(max_pages * P, (s + 1) * S))
+    with S = ``SPLIT[dtype]`` (S / P whole entries when P divides S).  It
+    depends on the table's width, P and the type alone, never on the
+    batch, the chunk length, the positions or the entries (must match the
+    kernel)."""
+    return -(-(max_pages * P) // SPLIT[dtype])
+
+
+def paged_scratch(rows: int, max_pages: int, P: int, D: int,
+                  dtype: torch.dtype, device):
+    """The paged split kernel's f32 scratch for ``rows`` = B*T*H query
+    rows, one buffer: ``part_acc`` [rows, n_splits, D], then ``part_ml``
+    [rows, n_splits, 2], with n_splits = ``paged_splits(max_pages, P,
+    dtype)``; row (b*T + t)*H + head is row (b, t, head) of q and out.
+    Returns the buffer and the addresses of the two."""
+    return _split_scratch(rows, paged_splits(max_pages, P, dtype), D,
+                          device)
+
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     lib = _build.load("paged_chunk")
     fn = lib.paged_chunk_attention
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.paged_chunk_error_string.argtypes = [ctypes.c_int]
     lib.paged_chunk_error_string.restype = ctypes.c_char_p
     return fn, lib.paged_chunk_error_string
-
-
-def _smem_bytes(R: int, P: int, D: int) -> int:
-    """Dynamic shared memory of one block (must match the kernel)."""
-    return 4 * (R * (D + 1) + P * (D + 1) + P * D + R * P + R * D + 3 * R)
 
 
 def paged_decode_chunk(q: torch.Tensor, k_pages: torch.Tensor,
@@ -53,7 +110,12 @@ def paged_decode_chunk(q: torch.Tensor, k_pages: torch.Tensor,
     The chunk's own K/V must already be in the pages.  Rows past a
     sequence's valid length return garbage; callers discard them.
     -> [B,T,H,D].  The layout checks hold on every device, so the CPU path
-    takes exactly what the kernel takes."""
+    takes exactly what the kernel takes.
+
+    On the card one call is two kernel launches, the split kernel over
+    ``paged_splits(max_pages, P, q.dtype)`` splits of the table and the
+    merge, and counts once in ``paged_decode_chunk.launches``.  Any number
+    of rows T*n_rep is taken: the kernel walks them in tiles of 16."""
     B, T, H, D = q.shape
     if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
         raise ValueError("k_pages/v_pages must both be [n_pages,P,Hkv,D]")
@@ -81,23 +143,27 @@ def paged_decode_chunk(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_chunk: unsupported device {q.device}")
     vec = 16 // q.element_size()
-    if D % vec or any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+    q_ptr, k_ptr, v_ptr = q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()
+    if D % vec or (q_ptr | k_ptr | v_ptr) % 16:
         raise ValueError(f"head dim must be a multiple of {vec} and the "
                          f"tensors 16-byte aligned")
-    smem = _smem_bytes(T * n_rep, P, D)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"T*n_rep={T * n_rep} rows need {smem} bytes of "
-                         f"shared memory (limit {_SMEM_LIMIT})")
+    _check_split_block(D, q.dtype)
     out = torch.empty_like(q)
+    maxp = page_table.shape[1]
     if B == 0 or T == 0:
         return out
+    if maxp == 0:
+        return out.zero_()
+    dev = q.device
+    # held until the launches are queued
+    scratch, part_acc, part_ml = paged_scratch(B * T * H, maxp, P, D,
+                                               q.dtype, dev)
     fn, err_str = _kernel()
-    with torch.cuda.device(q.device):
-        stream = _build.current_stream(q.device)
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                 B, T, Hkv, n_rep, D, P, page_table.shape[1], float(scale),
-                 int(q.dtype == torch.bfloat16), stream)
+    with torch.cuda.device(dev):
+        stream = _build.current_stream(dev)
+        err = fn(q_ptr, k_ptr, v_ptr, page_table.data_ptr(), pos.data_ptr(),
+                 part_acc, part_ml, out.data_ptr(), B, T, Hkv, n_rep, D, P,
+                 maxp, float(scale), int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"paged_chunk_attention launch failed: "
                            f"{err_str(err).decode()} (cuda error {err})")
@@ -212,27 +278,20 @@ paged_decode_attention = paged_decode
 
 
 # ------------------------------------------------------------- ring decode
-# ring slots per split, by type: 128 on the tensor cores (bf16), 64 on the
-# CUDA cores (f32, whose 128-slot K and V would not fit in shared memory)
-# (must match the kernel)
-RING_SPLIT = {torch.bfloat16: 128, torch.float32: 64}
-
-
 def ring_splits(C: int, dtype: torch.dtype) -> int:
     """Splits of a C-slot ring: split s holds slots [s * S, min(C, (s + 1)
-    * S)) with S = ``RING_SPLIT[dtype]``.  It depends on C and the type
-    alone, never on the batch or the positions (must match the kernel)."""
-    return -(-C // RING_SPLIT[dtype])
+    * S)) with S = ``SPLIT[dtype]``.  It depends on C and the type alone,
+    never on the batch or the positions (must match the kernel)."""
+    return -(-C // SPLIT[dtype])
 
 
-def ring_scratch(rows: int, C: int, D: int, dtype: torch.dtype,
-                 device) -> torch.Tensor:
+def ring_scratch(rows: int, C: int, D: int, dtype: torch.dtype, device):
     """The split kernel's f32 scratch for ``rows`` = B*H query rows, one
     buffer: ``part_acc`` [rows, n_splits, D], then ``part_ml`` [rows,
     n_splits, 2], with n_splits = ``ring_splits(C, dtype)``; each row's
-    partials are laid out by C and the type alone."""
-    return torch.empty(rows * ring_splits(C, dtype) * (D + 2),
-                       dtype=torch.float32, device=device)
+    partials are laid out by C and the type alone.  Returns the buffer and
+    the addresses of the two."""
+    return _split_scratch(rows, ring_splits(C, dtype), D, device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -245,19 +304,6 @@ def _ring_kernel():
     lib.decode_ring_error_string.argtypes = [ctypes.c_int]
     lib.decode_ring_error_string.restype = ctypes.c_char_p
     return fn, lib.decode_ring_error_string
-
-
-def _ring_smem_bytes(n_rep: int, D: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one split block (must match the kernel).
-    bf16: q, K and V rows in bf16, padded to multiples of 16 rows and
-    columns plus 8 columns, one m-tile's f32 scores and P hi / lo; f32: K,
-    V, q and the scores in f32."""
-    S = RING_SPLIT[dtype]
-    if dtype == torch.bfloat16:
-        st = -(-D // 16) * 16 + 8
-        return (2 * (-(-n_rep // 16) * 16 + 2 * S) * st + 4 * 16 * (S + 8)
-                + 2 * 2 * 16 * (S + 8))
-    return 4 * (2 * S * D + n_rep * D + n_rep * S)
 
 
 def decode_attention_kernel(q: torch.Tensor, cache_k: torch.Tensor,
@@ -310,16 +356,13 @@ def decode_attention_kernel(q: torch.Tensor, cache_k: torch.Tensor,
     if D % vec or any(t.data_ptr() % 16 for t in (q, cache_k, cache_v)):
         raise ValueError(f"head dim must be a multiple of {vec} and the "
                          f"tensors 16-byte aligned")
-    smem = _ring_smem_bytes(n_rep, D, q.dtype)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"n_rep={n_rep} rows of head dim {D} need {smem} "
-                         f"bytes of shared memory (limit {_SMEM_LIMIT})")
+    _check_split_block(D, q.dtype)
     out = torch.empty_like(q)
     if B == 0 or C == 0:
         return out
-    scratch = ring_scratch(B * H, C, D, q.dtype, q.device)
-    part_acc = scratch.data_ptr()
-    part_ml = part_acc + 4 * B * H * ring_splits(C, q.dtype) * D
+    # held until the launches are queued
+    scratch, part_acc, part_ml = ring_scratch(B * H, C, D, q.dtype,
+                                              q.device)
     fn, err_str = _ring_kernel()
     with torch.cuda.device(q.device):
         stream = _build.current_stream(q.device)

@@ -3,7 +3,8 @@
 The cases cover the hazards of the kernels: permuted page tables, -1
 padding, ragged positions, partial tail pages, valid pages wholly past a
 sequence's length, chunk lengths and sequence
-lengths that are no multiple of any tile, a windowed and a non-causal
+lengths that are no multiple of any tile, the paged split kernel's edges,
+a windowed and a non-causal
 attention, ring caches whose positions wrap past the cache length
 (twice), with windows below, at and above it, the ring kernel's split
 edges, expert-FFN row counts and widths that are no multiple of the
@@ -54,6 +55,66 @@ PAGED_CASES = [
     (2, 4, 8, 1, 2, 16, 4, 40, 9),
     (3, 2, 5, 2, 1, 32, 16, 12, 5),
 ]
+
+
+# The paged split kernel's edges (splits of 128 table positions in bf16,
+# 64 in float32): R = T * n_rep = 144, 256 (qwen3-moe-235b's 4 kv heads of
+# 16 queries) and 150 (no multiple of the 16-row m-tile) rows, past the
+# old 128-row cap; chunks that straddle a split boundary (120..128,
+# 250..265, 62..64, 125..132); pos = 0; -1 entries inside a split below a
+# row's position; splits wholly past every row (positions below 104 of
+# 384); a split whose every entry is -1 below the rows' positions; n_rep 3
+# (15 rows, one padded m-tile); a head dim (40) no multiple of 16; pages
+# of 4, 8, 16 and 64; pages of 48, which no split boundary lines up with
+# (a split straddles two pages), with a -1 entry; and pages of 256, each
+# spanning several splits.
+PAGED_SPLIT_EDGES = [
+    # seed, T, Hkv, n_rep, D, P, maxp, pos, holes ((b, entry) set to -1)
+    (40, 9, 1, 16, 64, 16, 12, (0, 120, 183), ()),
+    (41, 16, 4, 16, 32, 64, 5, (0, 57, 250, 303), ()),
+    (42, 3, 2, 2, 40, 4, 40, (0, 62, 130, 155), ((1, 3), (2, 20), (3, 0))),
+    (43, 5, 2, 3, 32, 16, 24, (0, 20, 60, 99), ()),
+    (44, 8, 2, 2, 32, 64, 6, (0, 125, 250, 370), ()),
+    (45, 2, 1, 4, 32, 8, 32, (200, 140),
+     tuple((0, e) for e in range(16))),
+    (46, 10, 1, 15, 32, 16, 10, (0, 117, 140), ()),
+    (47, 4, 2, 2, 32, 48, 8, (0, 125, 250, 380), ((2, 1),)),
+    (48, 6, 1, 4, 32, 256, 3, (0, 130, 600), ()),
+]
+
+
+def paged_split_case(seed, T, Hkv, n_rep, D, P, maxp, pos, holes=(),
+                     spare=2):
+    """q [B,T,H,D] (B = len(pos)) and pools of unit normals whose table
+    row b holds the pages of positions 0 .. pos[b]+T-1, drawn from a
+    permutation of the pool, and -1 past them; the (b, entry) of
+    ``holes`` set to -1; ``spare`` pool pages no table holds."""
+    rng = np.random.default_rng(seed)
+    B, H = len(pos), Hkv * n_rep
+    need = [-(-(p + T) // P) for p in pos]
+    assert max(need) <= maxp
+    n_pages = sum(need) + spare
+    q = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    kp = rng.standard_normal((n_pages, P, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, P, Hkv, D)).astype(np.float32)
+    perm = rng.permutation(n_pages)
+    pt = np.full((B, maxp), -1, np.int32)
+    used = 0
+    for b, n in enumerate(need):
+        pt[b, :n] = perm[used:used + n]
+        used += n
+    for b, e in holes:
+        pt[b, e] = -1
+    return q, kp, vp, pt, np.asarray(pos, np.int32)
+
+
+def paged_chunk_inputs(case):
+    """(q, k_pages, v_pages, page_table, pos, n_rep) of a ``PAGED_CASES``
+    or ``PAGED_SPLIT_EDGES`` entry (an edge's eighth field is its pos)."""
+    if isinstance(case[7], tuple):
+        return paged_split_case(*case) + (case[3],)
+    seed, B, T, Hkv, n_rep, D, P, n_pages, maxp = case
+    return paged_case(seed, B, T, Hkv, n_rep, D, P, n_pages, maxp) + (n_rep,)
 
 
 def paged_decode_case(seed, B, Hkv, n_rep, D, P, n_pages, maxp, spare=0):

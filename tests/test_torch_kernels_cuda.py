@@ -12,9 +12,11 @@ The expert-FFN kernel's rows must also be bitwise independent of how many
 rows are launched with them, and a causal flash launch's rows of how long
 its sequence is, and the split-KV ring kernel's rows (bf16 on the tensor
 cores, P as bf16 hi + lo) of the batch they are launched in; NaN in the
-ring slots a row cannot see must not reach it.  The SSD chunk scan is
-held relative to the
-largest reference value: y within 1e-2 in bf16 (the plain version also
+ring slots a row cannot see must not reach it.  The split-KV paged chunk
+kernel's rows must be bitwise independent of the batch and of the chunk:
+row t of a T-token launch at pos equals a one-token launch of it at
+pos + t; NaN in pool tokens no row sees must not reach it.  The SSD
+chunk scan is held relative to the largest reference value: y within 1e-2 in bf16 (the plain version also
 rounds the scores, the decayed score matrix and dt to bf16, the kernel
 only y) and 1e-3 in float32, against the plain version and against the
 token-by-token recurrence; its float32 final state within 1e-3; and a
@@ -28,10 +30,11 @@ import pytest
 import torch
 
 from _torch_cases import (FLASH_CASES, MOE_CASES, PAGED_CASES,
-                          PAGED_DECODE_CASES, RGLRU_CASES, RING_CASES,
-                          RING_SPLIT_EDGES, SSD_CASES, moe_case, paged_case,
-                          paged_decode_case, paged_decode_sweep, rglru_case,
-                          ring_inputs, ssd_case)
+                          PAGED_DECODE_CASES, PAGED_SPLIT_EDGES, RGLRU_CASES,
+                          RING_CASES, RING_SPLIT_EDGES, SSD_CASES, moe_case,
+                          paged_case, paged_chunk_inputs, paged_decode_case,
+                          paged_decode_sweep, rglru_case, ring_inputs,
+                          ssd_case)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_bhsd_ref
 from repro_torch.kernels.moe_ffn import ops as moe_ops
@@ -119,14 +122,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _paged_chunk_inputs(case, device, dtype):
+    q, kp, vp, pt, pos, n_rep = paged_chunk_inputs(case)
+    q, kp, vp = (torch.from_numpy(a).to(device, dtype) for a in (q, kp, vp))
+    pt, pos = (torch.from_numpy(a).to(device) for a in (pt, pos))
+    return q, kp, vp, pt, pos, n_rep
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", PAGED_CASES + [MAIN_PAGED])
+@pytest.mark.parametrize("case", PAGED_CASES + [MAIN_PAGED]
+                         + PAGED_SPLIT_EDGES)
 def test_paged_chunk_kernel_matches_plain(cuda_device, dtype, case):
-    seed, B, T, Hkv, n_rep, D, P, n_pages, maxp = case
-    arrs = paged_case(seed, B, T, Hkv, n_rep, D, P, n_pages, maxp)
-    q, kp, vp = (torch.from_numpy(a).to(cuda_device, dtype) for a in arrs[:3])
-    pt, pos = (torch.from_numpy(a).to(cuda_device) for a in arrs[3:])
+    q, kp, vp, pt, pos, n_rep = _paged_chunk_inputs(case, cuda_device, dtype)
+    D = q.shape[-1]
     n = paged_ops.paged_decode_chunk.launches
     got = paged_ops.paged_decode_chunk(q, kp, vp, pt, pos, scale=D ** -0.5,
                                        n_rep=n_rep)
@@ -135,6 +144,66 @@ def test_paged_chunk_kernel_matches_plain(cuda_device, dtype, case):
     want = paged_decode_chunk_ref(q, kp, vp, pt, pos, scale=D ** -0.5,
                                   n_rep=n_rep)
     torch.testing.assert_close(got.float(), want.float(), **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [MAIN_PAGED, PAGED_SPLIT_EDGES[1],
+                                  PAGED_SPLIT_EDGES[2], PAGED_SPLIT_EDGES[7],
+                                  PAGED_SPLIT_EDGES[8]])
+def test_paged_chunk_rows_do_not_depend_on_the_batch_or_the_chunk(
+        cuda_device, dtype, case):
+    """Each sequence of a launch equals, bitwise, a B=1 launch of it, and
+    row t of a T-token launch at pos equals a T=1 launch of its q row at
+    pos + t over the same pages: the table's splits are fixed by P and
+    the type alone, each row is masked by its own position, and the
+    splits merge in order."""
+    q, kp, vp, pt, pos, n_rep = _paged_chunk_inputs(case, cuda_device, dtype)
+    kw = dict(scale=q.shape[-1] ** -0.5, n_rep=n_rep)
+    full = paged_ops.paged_decode_chunk(q, kp, vp, pt, pos, **kw)
+    for b in range(q.shape[0]):
+        one = paged_ops.paged_decode_chunk(
+            q[b:b + 1], kp, vp, pt[b:b + 1].contiguous(), pos[b:b + 1], **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(one, full[b:b + 1])
+    for t in range(q.shape[1]):
+        one = paged_ops.paged_decode_chunk(q[:, t:t + 1].contiguous(), kp,
+                                           vp, pt, pos + t, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(one, full[:, t:t + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [MAIN_PAGED, PAGED_SPLIT_EDGES[2],
+                                  PAGED_SPLIT_EDGES[5], PAGED_SPLIT_EDGES[7]])
+def test_paged_chunk_kernel_never_reads_invisible_tokens(cuda_device, dtype,
+                                                          case):
+    """NaN in the pool pages no table holds and in every token past
+    pos + T - 1 of a row's pages leaves the output finite and equal to the
+    plain version's on the same pool with those tokens zeroed: the kernel
+    zero-fills them without reading them."""
+    q, kp, vp, pt, pos, n_rep = _paged_chunk_inputs(case, cuda_device, dtype)
+    T, P = q.shape[1], kp.shape[1]
+    hidden = torch.ones(kp.shape[:2], dtype=torch.bool)       # [n_pages,P]
+    for b, p in enumerate(pos.tolist()):
+        for tok in range(p + T):
+            page = int(pt[b, tok // P])
+            if page >= 0:
+                hidden[page, tok % P] = False
+    hidden = hidden.to(cuda_device)[:, :, None, None]
+    kw = dict(scale=q.shape[-1] ** -0.5, n_rep=n_rep)
+    nan = torch.tensor(float("nan"), device=cuda_device, dtype=dtype)
+    dirty = paged_ops.paged_decode_chunk(
+        q, torch.where(hidden, nan, kp), torch.where(hidden, nan, vp), pt,
+        pos, **kw)
+    zero = torch.zeros((), device=cuda_device, dtype=dtype)
+    want = paged_decode_chunk_ref(
+        q, torch.where(hidden, zero, kp), torch.where(hidden, zero, vp), pt,
+        pos, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dirty).all())
+    torch.testing.assert_close(dirty.float(), want.float(), **CARD_TOL[dtype])
 
 
 def _paged_decode_inputs(case):
@@ -186,10 +255,10 @@ def test_paged_decode_kernel_matches_plain(cuda_device, dtype, case):
 @pytest.mark.cuda
 def test_kernels_launch_from_concurrent_threads(cuda_device):
     """Two threads (two engines' pump threads) launch the kernels at once
-    with different shared-memory needs (B1 at T=1 and T=8, B3; the flash
-    kernel at head dims 32 and 256; the expert FFN in bf16 and in f32 at
-    d_expert 2048): every launch succeeds and gives the single-threaded
-    result."""
+    with different shared-memory needs (B1 at T=1 and T=8, B1 over 256 rows
+    in f32, B3; the flash kernel at head dims 32 and 256; the expert FFN in
+    bf16 and in f32 at d_expert 2048): every launch succeeds and gives the
+    single-threaded result."""
     import threading
 
     cases = []
@@ -204,6 +273,10 @@ def test_kernels_launch_from_concurrent_threads(cuda_device):
              for c in cases]
     calls.append(lambda c=cases[0]: paged_ops.paged_decode(
         c[0][:, 0].contiguous(), c[1], c[2], c[3], c[4] + 1, **args))
+    *wide, n_rep = _paged_chunk_inputs(PAGED_SPLIT_EDGES[1], cuda_device,
+                                       torch.float32)
+    calls.append(lambda: paged_ops.paged_decode_chunk(*wide, scale=0.125,
+                                                      n_rep=n_rep))
     rng = np.random.default_rng(32)
     for D in (32, 256):
         qkv = [torch.from_numpy(rng.standard_normal((2, 70, D)).astype(
@@ -559,12 +632,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
                                           ck[..., :30].contiguous(),
                                           ck[..., :30].contiguous(), pos,
                                           **ring)
+    # the split block's shared memory grows with the head dim only (a
+    # 64-key f32 split at D=512 needs 299,520 bytes), not with the rows
     with pytest.raises(ValueError, match="shared memory"):
         paged_ops.decode_attention_kernel(
-            torch.zeros(1, 1, 256, 128, device=cuda_device),
-            torch.zeros(1, 8, 1, 128, device=cuda_device),
-            torch.zeros(1, 8, 1, 128, device=cuda_device), pos[:1],
-            window=None, scale=1.0, n_rep=256)
+            torch.zeros(1, 1, 2, 512, device=cuda_device),
+            torch.zeros(1, 8, 1, 512, device=cuda_device),
+            torch.zeros(1, 8, 1, 512, device=cuda_device), pos[:1],
+            window=None, scale=1.0, n_rep=2)
+    with pytest.raises(ValueError, match="shared memory"):
+        wide = torch.zeros(4, 8, 1, 512, device=cuda_device)
+        paged_ops.paged_decode_chunk(
+            torch.zeros(1, 1, 2, 512, device=cuda_device), wide, wide,
+            pt[:1], pos[:1], scale=1.0, n_rep=2)
     xe = torch.zeros(2, 3, 16, device=cuda_device, dtype=torch.float16)
     w = torch.zeros(2, 16, 8, device=cuda_device, dtype=torch.float16)
     wd = torch.zeros(2, 8, 16, device=cuda_device, dtype=torch.float16)

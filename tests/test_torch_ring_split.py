@@ -2,13 +2,14 @@
 kernel, on the CPU.
 
 The port's ring kernel (``csrc/decode_ring.cu``) cuts the cache into
-fixed splits of ``RING_SPLIT[dtype]`` slots (``ops.ring_splits``: 128 in
+fixed splits of ``SPLIT[dtype]`` slots (``ops.ring_splits``: 128 in
 bf16, 64 in float32), leaves each
 split's softmax state (m, l, acc) over its visible slots, and merges the
 splits with B3's weights exp(m_s - max m).  The CUDA source cannot run
-here, so :func:`split_emulation` repeats that algorithm in plain torch,
-split by split, with the kernel's arithmetic: f32 scores of the inputs
-masked to -inf outside ``ring_visible``, invisible slots' V zero-filled,
+here, so :func:`split_emulation` repeats that algorithm in plain torch
+(``_torch_split``, shared with the paged chunk kernel's emulation), split
+by split, with the kernel's arithmetic: f32 scores of the inputs masked
+to -inf outside ``ring_visible``, invisible slots' K and V zero-filled,
 and in bf16 the probabilities fed to P.V as bf16 hi + lo.  It is held
 against the reference's ``decode_attention_kernel`` (the Pallas kernel in
 interpret mode), the reference's oracle ``decode_ring_ref`` and the port's
@@ -47,6 +48,7 @@ from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     decode_ring_ref, ring_visible)
 
+import _torch_split  # noqa: E402
 from _torch_cases import (RING_CASES, RING_SPLIT_EDGES,  # noqa: E402
                           ring_inputs)
 
@@ -56,69 +58,19 @@ TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
 
 def split_bounds(C, dtype):
     """[(first slot, end slot)] of each split of a C-slot ring."""
-    S = paged_ops.RING_SPLIT[dtype]
-    return [(s * S, min(C, (s + 1) * S))
-            for s in range(paged_ops.ring_splits(C, dtype))]
-
-
-def split_states(q, cache_k, cache_v, pos, *, scale, n_rep, window,
-                 p_lo=True):
-    """Each split's (m, l, acc) per query row, as the split kernel leaves
-    them: m [B*H, n], l [B*H, n], acc [B*H, n, D] in f32; a split with no
-    visible slot gets (-inf, 0) and an acc nobody reads (zeros here).  In
-    bf16 P enters P.V as hi + lo, or as hi alone with ``p_lo=False``."""
-    B, C, Hkv, D = cache_k.shape
-    bf16 = q.dtype == torch.bfloat16
-    visible = ring_visible(pos, C, window)                     # [B, C]
-    qg = q.float().reshape(B, Hkv, n_rep, D)
-    k = cache_k.float()
-    v = torch.where(visible[:, :, None, None], cache_v.float(),
-                    torch.zeros(()))                           # zero-filled
-    ms, ls, accs = [], [], []
-    for t0, t1 in split_bounds(C, q.dtype):
-        vis = visible[:, t0:t1]
-        s = torch.einsum("bgrd,bcgd->bgrc", qg, k[:, t0:t1]) * scale
-        s = torch.where(vis[:, None, None], s, torch.full_like(s, -np.inf))
-        m = s.amax(-1)
-        seen = vis.any(-1)[:, None, None]
-        p = torch.where(seen[..., None], torch.exp(s - torch.where(
-            seen, m, torch.zeros_like(m))[..., None]), torch.zeros_like(s))
-        l = p.sum(-1)
-        if bf16:
-            hi = p.bfloat16().float()
-            acc = torch.einsum("bgrc,bcgd->bgrd", hi, v[:, t0:t1])
-            if p_lo:
-                lo = (p - hi).bfloat16().float()
-                acc = acc + torch.einsum("bgrc,bcgd->bgrd", lo, v[:, t0:t1])
-        else:
-            acc = torch.einsum("bgrc,bcgd->bgrd", p, v[:, t0:t1])
-        ms.append(m.reshape(B * Hkv * n_rep))
-        ls.append(l.reshape(B * Hkv * n_rep))
-        accs.append(acc.reshape(B * Hkv * n_rep, D))
-    return torch.stack(ms, 1), torch.stack(ls, 1), torch.stack(accs, 1)
-
-
-def merge_states(m, l, acc, dtype):
-    """B3's merge (``merge_splits_kernel``): splits with l = 0 pass over,
-    the rest weigh exp(m_s - max m); a row with none gets zeros."""
-    live = l > 0
-    m_max = torch.where(live, m, torch.full_like(m, -np.inf)).amax(1,
-                                                                  True)
-    w = torch.where(live, torch.exp(m - torch.where(
-        live.any(1, True), m_max, torch.zeros_like(m_max))),
-        torch.zeros_like(m))
-    num = (w[..., None] * acc).sum(1)
-    den = (w * l).sum(1, True)
-    return (num / den.clamp(min=1e-30)).to(dtype)
+    return _torch_split.split_bounds(C, paged_ops.SPLIT[dtype])
 
 
 def split_emulation(q, cache_k, cache_v, pos, *, scale, n_rep, window,
                     p_lo=True):
     """The split kernel and its merge in plain torch -> [B,1,H,D]."""
     B, _, H, D = q.shape
-    m, l, acc = split_states(q, cache_k, cache_v, pos, scale=scale,
-                             n_rep=n_rep, window=window, p_lo=p_lo)
-    return merge_states(m, l, acc, q.dtype).reshape(B, 1, H, D)
+    C, Hkv = cache_k.shape[1:3]
+    visible = ring_visible(pos, C, window)[:, None, None]    # [B,1,1,C]
+    m, l, acc = _torch_split.split_states(
+        q.reshape(B, Hkv, n_rep, D), cache_k, cache_v, visible,
+        paged_ops.SPLIT[q.dtype], scale=scale, p_lo=p_lo)
+    return _torch_split.merge_states(m, l, acc, q.dtype).reshape(B, 1, H, D)
 
 
 def _torch_inputs(case, dtype):
@@ -168,10 +120,10 @@ def test_bf16_tolerance_sees_p_rounded_once():
 @pytest.mark.parametrize("C", [1, 40, 63, 64, 65, 96, 130, 200, 1024, 2048])
 def test_split_layout_depends_on_the_cache_length_alone(C, dtype):
     """``ring_splits`` covers the C slots with fixed splits of
-    ``RING_SPLIT[dtype]`` (the last one short), and the scratch gives every
+    ``SPLIT[dtype]`` (the last one short), and the scratch gives every
     query row the same n_splits * (D + 2) floats at any batch; no position
     enters either."""
-    S = paged_ops.RING_SPLIT[dtype]
+    S = paged_ops.SPLIT[dtype]
     bounds = split_bounds(C, dtype)
     assert bounds[0][0] == 0 and bounds[-1][1] == C
     assert all(b0 == a1 for (_, a1), (b0, _) in zip(bounds, bounds[1:]))
@@ -179,7 +131,7 @@ def test_split_layout_depends_on_the_cache_length_alone(C, dtype):
     assert 0 < bounds[-1][1] - bounds[-1][0] <= S
     assert paged_ops.ring_splits(C, dtype) == len(bounds) == -(-C // S)
     for B, H in ((1, 16), (8, 16), (3, 2)):
-        scratch = paged_ops.ring_scratch(B * H, C, 8, dtype, "cpu")
+        scratch, _, _ = paged_ops.ring_scratch(B * H, C, 8, dtype, "cpu")
         assert scratch.dtype == torch.float32
         assert scratch.shape == (B * H * len(bounds) * (8 + 2),)
 

@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""Host cost of the SSD chunk-scan wrapper, and the ssm phase's
-``prefill_chunk=0`` serve trace, for the port found under one source
-directory.  Runs on one NVIDIA card.
+"""The ssm phase's ``prefill_chunk=0`` serve trace for the port found
+under one source directory.  Runs on one NVIDIA card.
 
     python3 tools/ssm_host_ab.py SRC_DIR [--label NAME]
 
@@ -12,59 +11,20 @@ version, in the order A, B, B, A.  The trace, its checks and its
 printing are ``chip_smoke.py``'s own (``ssm_serve``: mamba2-130m at full
 width, random weights from a seed, the serve trace with a profiled wave
 and a profiled admission step), taken from the checkout this script lies
-in, so both versions run the same trace code.
-
-Prints, tagged with the label:
-
-* ``[host]`` the wrapper's host time per call at mamba2-130m's admission
-  shape (B=1, S=512, H=24, P=64, N=128, chunk 256, bf16): calls queued
-  behind a spin kernel, so the card never makes the host wait; median and
-  mean of 400 calls in batches of 50;
-* ``[ssm]`` lines of ``ssm_serve``: step ms p50 and p99 of the trace, the
-  profiled wave's device busy share, the admission step's host wall and
-  the chunk scan's device time per admission.
+in, so both versions run the same trace code.  It prints ``[ssm]`` lines:
+step ms p50 and p99 of the trace, the profiled wave's device busy share,
+the admission step's host wall and the chunk scan's device time per
+admission.  The chunk scan wrapper's own host time, parent against change
+in one process, is ``chip_smoke.wrapper_ab(..., "ssd_chunk_scan")``.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-import time
 from pathlib import Path
 
-import numpy as np
-
 ROOT = Path(__file__).resolve().parents[1]
-
-
-def wrapper_host_us(torch, ssd_ops, batches=8, per_batch=50):
-    """Host microseconds of each ``ssd_chunk_scan`` call, the calls queued
-    behind a 50 ms spin so that none waits on the card."""
-    g = torch.Generator(device="cuda").manual_seed(0)
-    B, S, H, P, N, Q = 1, 512, 24, 64, 128, 256
-    x = torch.randn((B, S, H, P), generator=g, device="cuda").bfloat16()
-    dt = torch.rand((B, S, H), generator=g, device="cuda") * 0.1
-    A = torch.rand((H,), generator=g, device="cuda") + 0.5
-    Bm = torch.randn((B, S, N), generator=g, device="cuda").bfloat16()
-    Cm = torch.randn((B, S, N), generator=g, device="cuda").bfloat16()
-    for _ in range(5):  # builds and loads the library
-        ssd_ops.ssd_chunk_scan(x, dt, A, Bm, Cm, chunk=Q)
-    torch.cuda.synchronize()
-    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    s.record()
-    torch.cuda._sleep(1 << 22)
-    e.record()
-    torch.cuda.synchronize()
-    cycles_per_ms = (1 << 22) / s.elapsed_time(e)
-    us = []
-    for _ in range(batches):
-        torch.cuda._sleep(int(50 * cycles_per_ms))
-        for _ in range(per_batch):
-            t = time.perf_counter()
-            ssd_ops.ssd_chunk_scan(x, dt, A, Bm, Cm, chunk=Q)
-            us.append((time.perf_counter() - t) * 1e6)
-        torch.cuda.synchronize()
-    return us
 
 
 def main() -> int:
@@ -94,10 +54,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     print(f"[{label}] card: {cs.nvidia_smi()}; repro_torch from {src}")
-    us = wrapper_host_us(torch, ssd_ops)
-    print(f"[{label}] [host] ssd_chunk_scan wrapper, B=1 S=512 bf16: median "
-          f"{np.median(us):.1f} us, mean {np.mean(us):.1f} us, p90 "
-          f"{np.percentile(us, 90):.1f} us over {len(us)} calls")
     counters = {"paged_decode_chunk": paged_ops.paged_decode_chunk,
                 "flash_attention_bhsd": flash_ops.flash_attention_bhsd,
                 "decode_ring": paged_ops.decode_attention_kernel,
