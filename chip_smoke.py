@@ -14,14 +14,17 @@ the run with a non-zero exit and no result line:
              bitwise across sequence lengths, the SSD chunk scan's and the
              ring kernel's across batch sizes, the paged chunk kernel's
              across batch sizes and chunk lengths, and past its old
-             128-row cap at R = 144 and 256; the SSD chunk scan, the ring
-             and the paged chunk kernels also in float32, the scan against
-             the token-by-token recurrence), and time kernel, plain
-             version and a PyTorch yardstick (``library_ms``, never used
-             by the port) against the card's bound; the timed paged chunk,
-             flash, expert-FFN, ring, SSD and RG-LRU rows name their design
-             and each launch's ptxas registers and spills, the paged chunk
-             and ring rows also the wrapper's host time per call.
+             128-row cap at R = 144 and 256; the one-token paged decode
+             bitwise against the paged chunk kernel at T=1 and across
+             batch sizes, up to one 32768-token sequence whose 256 splits
+             a row go through the merge; the SSD chunk scan, the ring and
+             the paged kernels also in float32, the scan against the
+             token-by-token recurrence), and time kernel, plain version
+             and a PyTorch yardstick (``library_ms``, never used by the
+             port) against the card's bound; the timed paged, flash,
+             expert-FFN, ring, SSD and RG-LRU rows name their design and
+             each launch's ptxas registers and spills, the paged and ring
+             rows also the wrapper's host time per call.
 3. serve   — qwen3-0.6b at full width (random weights from a seed) served by
              the port's paged ``InferenceEngine``: 16 requests with
              follow-up turns and a shared system prompt (timed), a third
@@ -471,11 +474,14 @@ def phase_kernels(torch, timer, paged_ops, paged_ref, flash_ops, flash_ref,
     return rows
 
 
-# the paged chunk kernel's split launches (bf16, f32) and the merge, in
-# ptxas's mangled names
+# the merge's warp-a-row launch (bf16), in ptxas's mangled name
+MERGE_ROWS = "24merge_splits_rows_kernelI13__nv_bfloat16E"
+# the paged chunk kernel's split launches (bf16, f32) and the merge's
+# launches, in ptxas's mangled names
 PAGED_SYMBOLS = ("18paged_split_kernelI13__nv_bfloat16E",
                  "18paged_split_kernelIfE",
-                 "19merge_splits_kernelI13__nv_bfloat16E")
+                 "19merge_splits_kernelI13__nv_bfloat16Li",
+                 MERGE_ROWS)
 PAGED_DESIGN = ("design=split-KV, fixed splits of {S} table positions, grid "
                 "(splits, Hkv, B) = {blocks} blocks ({live} with a visible "
                 "token) + the shared merge; bf16 mma.sync m16n8k16, {R} rows "
@@ -509,7 +515,11 @@ def ab_cases(torch, kernel):
     kwargs)} of the shapes :func:`wrapper_ab` times it at, bf16: the paged
     chunk kernel at phase 2's timed shapes (B=8, D=128, pages of 64,
     contexts 32..544: qwen3-0.6b's T=8 and T=1, and qwen3-moe-235b's 4 kv
-    heads of 16 queries at T=8 and 16, 128 and 256 rows); the ring kernel
+    heads of 16 queries at T=8 and 16, 128 and 256 rows); the one-token
+    paged decode at :func:`paged_decode_rows`' serve, long and 32768
+    shapes (B=8, lengths 264..319; one sequence of 8192 and one of 32768
+    tokens) and at one sequence of 2048 and of 4096 tokens (16 and 32
+    splits of 16 rows); the ring kernel
     at qwen3-0.6b's ``decode_step`` (B=8, C=1024, positions 256..319) and
     recurrentgemma-9b's wrapped ring (B=8, C=2048, one kv head of 16, D=256,
     window 2048); the SSD chunk scan at mamba2-130m's admission (B=1,
@@ -529,6 +539,20 @@ def ab_cases(torch, kernel):
                                 (32, 544))
             cases[label] = args, dict(scale=128 ** -0.5, n_rep=H // Hkv)
         return "kernels.paged_attention.ops.paged_decode_chunk", cases
+    if kernel == "paged_decode":
+        cases = {}
+        for label, B, maxp, n_pages, (lo, hi) in (
+                ("serve", 8, 16, 272, (264, 320)),
+                ("long", 1, 128, 130, (8192, 8193)),
+                ("32768", 1, 512, 514, (32768, 32769)),
+                ("B=1 2048", 1, 32, 34, (2048, 2049)),
+                ("B=1 4096", 1, 64, 66, (4096, 4097))):
+            q4, kp, vp, pt, pos = paged_inputs(
+                torch, 200 + B + lo, B, 1, 16, 8, 128, 64, n_pages, maxp,
+                (lo - 1, hi - 1))
+            cases[label] = ((q4[:, 0].contiguous(), kp, vp, pt, pos + 1),
+                            dict(scale=128 ** -0.5, n_rep=2))
+        return "kernels.paged_attention.ops.paged_decode", cases
     if kernel == "decode_ring":
         cases = {}
         for label, C, Hkv, D, window, lo, hi in (
@@ -603,7 +627,10 @@ def paged_chunk_rows(torch, timer, paged_ops, paged_ref, H, Hkv, D):
     (one kv head of 16 queries, T=9) and 256 (qwen3-moe-235b's 4 kv heads
     of 16 queries, T=16), in bf16 and float32; every row of the T=8 and
     R=256 launches bitwise against a B=1 launch of its sequence and a T=1
-    launch of its q row at pos + t, in both types.  Timed (bf16) at T=8
+    launch of its q row at pos + t, in both types; the same at T=8 over
+    tables of 48 entries (contexts 1024..3071: 24 splits a row in bf16,
+    so the merge's warp-a-row kernel sums splits 16..23 in its second
+    stage; 48 splits in float32, the sliced merge).  Timed (bf16) at T=8
     (the row in the JSON line), T=1 and R=256, beside the plain version
     and gather + SDPA, with the wrapper's host time per call.  Returns the
     JSON row."""
@@ -634,7 +661,10 @@ def paged_chunk_rows(torch, timer, paged_ops, paged_ref, H, Hkv, D):
     inputs = {label: paged_inputs(torch, seed, B, T, h, hkv, D, P, n_pages,
                                   maxp, (32, 544))
               for label, (seed, T, h, hkv) in shapes.items()}
-    for label in ("T=8", "R=144", "R=256"):
+    shapes["splits=24"] = (124, 8, H, Hkv)
+    inputs["splits=24"] = paged_inputs(torch, 124, B, 8, H, Hkv, D, P,
+                                       B * 48, 48, (1024, 3064))
+    for label in ("T=8", "R=144", "R=256", "splits=24"):
         _, T, h, hkv = shapes[label]
         q, kp, vp, pt, pos = inputs[label]
         kw = dict(scale=scale, n_rep=h // hkv)
@@ -656,7 +686,9 @@ def paged_chunk_rows(torch, timer, paged_ops, paged_ref, H, Hkv, D):
             ok = torch.allclose(got.float(), want.float(), **tol)
             name = "bf16" if dt == torch.bfloat16 else "f32"
             print(f"[kernels] paged_decode_chunk {name} B={B} T={T} H={h} "
-                  f"Hkv={hkv} R={T * h // hkv} max_abs_err={e:.3e} "
+                  f"Hkv={hkv} R={T * h // hkv} splits="
+                  f"{paged_ops.paged_splits(pt.shape[1], P, dt)} "
+                  f"max_abs_err={e:.3e} "
                   f"tol={tol} ok={ok}; rows bitwise equal to B=1 launches: "
                   f"{same_b}, to T=1 launches at pos + t: {same_t}")
             check(ok and same_b is not False and same_t is not False
@@ -709,61 +741,84 @@ def paged_chunk_rows(torch, timer, paged_ops, paged_ref, H, Hkv, D):
 
 def paged_decode_rows(torch, timer, paged_ops, paged_ref, H, Hkv, D):
     """The one-token split-KV paged decode (B3) at qwen3-0.6b's shapes
-    (pages of 64, tables from the engine's default pool of 272 pages):
-    B=8 at contexts 264..319 (the row in the JSON line) and 975..1020, and
-    one 8192-token sequence, whose 128 pages are 128 splits.  Each is held against its plain version and against the paged
-    chunk kernel at T=1 (pos = lengths - 1, the same function), and timed
-    beside both and beside gather + SDPA.  The bound counts q in, the
-    output, the table and lengths, and the K and V of every visible token
-    once; 4*D flops per (query head, visible token)."""
+    (pages of 64): B=8 at contexts 264..319 (the row in the JSON line) and
+    975..1020 over tables from the engine's default pool of 272 pages, one
+    8192-token sequence (64 splits of 128 tokens in bf16) and one of 32768
+    tokens (a pool of 514 pages; 256 splits a row for the merge).  Each is
+    held against its plain version (bf16), and in bf16 and float32 bitwise
+    against the paged chunk kernel at T=1 with pos = lengths - 1 (the same
+    function through the same table walk, split block and merge) and its
+    rows bitwise against B=1 launches.  Timed (bf16) beside the plain
+    version, B1 at T=1 and gather + SDPA, with the wrapper's host time per
+    call.  The bound counts q in, the output, the table and lengths, and
+    the K and V of every visible token once; 4*D flops per (query head,
+    visible token)."""
     n_rep, P = H // Hkv, 64
     scale = D ** -0.5
+    kw = dict(scale=scale, n_rep=n_rep)
     err, timed = 0.0, {}
     for label, B, maxp, n_pages, (lo, hi) in (
             ("serve", 8, 16, 272, (264, 320)),
             ("full", 8, 16, 272, (975, 1021)),
-            ("long", 1, 128, 130, (8192, 8193))):
+            ("long", 1, 128, 130, (8192, 8193)),
+            ("32768", 1, 512, 514, (32768, 32769))):
         q4, kp, vp, pt, pos = paged_inputs(torch, 200 + B + lo, B, 1, H,
                                            Hkv, D, P, n_pages, maxp,
                                            (lo - 1, hi - 1))
         q, lengths = q4[:, 0].contiguous(), pos + 1
-        got = paged_ops.paged_decode(q, kp, vp, pt, lengths, scale=scale,
-                                     n_rep=n_rep)
+        got = paged_ops.paged_decode(q, kp, vp, pt, lengths, **kw)
         torch.cuda.synchronize()
-        want = paged_ref.paged_decode_ref(q, kp, vp, pt, lengths,
-                                          scale=scale, n_rep=n_rep)
-        chunk = paged_ops.paged_decode_chunk(q4, kp, vp, pt, pos, scale=scale,
-                                             n_rep=n_rep)[:, 0]
+        want = paged_ref.paged_decode_ref(q, kp, vp, pt, lengths, **kw)
         e = (got.float() - want.float()).abs().max().item()
-        e1 = (got.float() - chunk.float()).abs().max().item()
         ok = (torch.allclose(got.float(), want.float(), **KERNEL_TOL)
-              and torch.allclose(got.float(), chunk.float(), **KERNEL_TOL)
               and bool(torch.isfinite(got).all()))
+        same = {}
+        for dt in (torch.bfloat16, torch.float32):
+            qd, kd, vd = (x.to(dt) for x in (q, kp, vp))
+            mine = got if dt == torch.bfloat16 else paged_ops.paged_decode(
+                qd, kd, vd, pt, lengths, **kw)
+            b1 = paged_ops.paged_decode_chunk(qd[:, None].contiguous(), kd,
+                                              vd, pt, pos, **kw)[:, 0]
+            alone = all(torch.equal(paged_ops.paged_decode(
+                qd[b:b + 1], kd, vd, pt[b:b + 1].contiguous(),
+                lengths[b:b + 1], **kw), mine[b:b + 1]) for b in range(B))
+            torch.cuda.synchronize()
+            same[dt] = (torch.equal(mine, b1), alone)
         print(f"[kernels] paged_decode {label} B={B} len={lo}..{hi - 1} "
-              f"({maxp} page splits per (b, kv head)): "
-              f"max_abs_err={e:.3e} vs plain, {e1:.3e} vs paged_decode_chunk "
-              f"T=1; tol={KERNEL_TOL} ok={ok}")
-        check(ok, f"paged_decode disagrees with its plain version or the "
-                  f"paged chunk kernel ({label})")
+              f"({paged_ops.paged_splits(maxp, P, q.dtype)} splits of "
+              f"{paged_ops.SPLIT[q.dtype]} tokens per (b, kv head)): "
+              f"max_abs_err={e:.3e} vs plain, tol={KERNEL_TOL} ok={ok}; "
+              f"bitwise equal to paged_decode_chunk T=1 and rows to B=1 "
+              f"launches: bf16 {same[torch.bfloat16]}, f32 "
+              f"{same[torch.float32]}")
+        check(ok and all(all(v) for v in same.values()),
+              f"paged_decode disagrees with its plain version, or differs "
+              f"from the paged chunk kernel at T=1 or from B=1 launches "
+              f"({label})")
         err = max(err, e)
         n_bytes, flops = paged_cost(pt, pos, 1, H, Hkv, D, P)
         bound, by = bound_ms(n_bytes, flops)
         library = gather_sdpa(torch, q4, kp, vp, pt, pos, scale)
-        t = {"ms": timer.ms(lambda: paged_ops.paged_decode(
-                 q, kp, vp, pt, lengths, scale=scale, n_rep=n_rep)),
+
+        def kernel():
+            return paged_ops.paged_decode(q, kp, vp, pt, lengths, **kw)
+        t = {"ms": timer.ms(kernel),
              "plain_ms": timer.ms(lambda: paged_ref.paged_decode_ref(
-                 q, kp, vp, pt, lengths, scale=scale, n_rep=n_rep)),
+                 q, kp, vp, pt, lengths, **kw)),
              "library_ms": timer.ms(library),
              "bound_ms": bound, "bound_by": by}
         b1_ms = timer.ms(lambda: paged_ops.paged_decode_chunk(
-            q4, kp, vp, pt, pos, scale=scale, n_rep=n_rep))
+            q4, kp, vp, pt, pos, **kw))
+        host = timer.host_us(kernel)
         timed[label] = t
         print(f"[kernels] paged_decode timed {label} B={B} H={H} Hkv={Hkv} "
               f"D={D} P={P}: ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
               f"library_ms={t['library_ms']:.4f} (gather + SDPA) "
               f"paged_decode_chunk_T1_ms={b1_ms:.4f} bound_ms={bound:.5f} "
-              f"({by}; {n_bytes} B, {flops} flop)")
-    return dict(source="src/repro_torch/csrc/paged_decode.cu",
+              f"({by}; {n_bytes} B, {flops} flop); wrapper host us per "
+              f"call {host:.1f} (queued behind a spin) "
+              f"[{ptxas_tag(*PAGED_SYMBOLS)}]")
+    return dict(source="src/repro_torch/csrc/paged_chunk.cu",
                 replaces="src/repro/kernels/paged_attention/"
                          "paged_attention.py:166",
                 max_abs_err=err, **timed["serve"])
@@ -833,11 +888,12 @@ def flash_rows(torch, timer, flash_ops, flash_ref, tag, H, D, seed,
     return err, timings
 
 
-# the ring kernel's split launches (bf16, f32) and the merge, in ptxas's
+# the ring kernel's split launches (bf16, f32) and the merge's, in ptxas's
 # mangled names
 RING_SYMBOLS = ("17ring_split_kernelI13__nv_bfloat16E",
                 "17ring_split_kernelIfE",
-                "19merge_splits_kernelI13__nv_bfloat16E")
+                "19merge_splits_kernelI13__nv_bfloat16Li",
+                MERGE_ROWS)
 RING_DESIGN = ("design=split-KV, fixed splits of {S} slots, grid (splits, "
                "Hkv, B) = {blocks} blocks ({live} with a visible slot) + "
                "the shared merge; bf16 mma.sync m16n8k16, n_rep rows in "
@@ -1274,7 +1330,7 @@ def phase_serve(torch, rt, cfg, counters):
                   prefill_tokens=m.prefill_tokens)
     profile_window(torch, engine, cfg, Request, SamplingParams(
         max_new_tokens=16), names=("paged_split_kernel",
-                                   "merge_splits_kernel"))
+                                   "merge_splits"))
     flash_before = counters["flash_attention_bhsd"].launches
 
     warm_toks = np.random.default_rng(1).integers(0, cfg.vocab_size, 300)
@@ -1608,8 +1664,8 @@ def nalar_b3_over_pool(torch, rtm, paged_ops, paged_ref, dtype_name):
     """B3 over the served pool: for each replica, one call over every
     session resident in its pool (the pool's own page tables and token
     counts) at layer 0 and the last layer, held against its plain version
-    and the paged chunk kernel at T=1 on the same pages.  Returns the
-    number of sessions read."""
+    and bitwise against the paged chunk kernel at T=1 on the same pages.
+    Returns the number of sessions read."""
     pool = rtm.engine_backends["llm"]
     g = torch.Generator(device="cuda").manual_seed(7)
     seen = 0
@@ -1638,16 +1694,17 @@ def nalar_b3_over_pool(torch, rtm, paged_ops, paged_ref, dtype_name):
             b1 = paged_ops.paged_decode_chunk(q[:, None].contiguous(), kp, vp,
                                               pt, lengths - 1, scale=scale,
                                               n_rep=n_rep)[:, 0]
+            torch.cuda.synchronize()
             e = (got.float() - want.float()).abs().max().item()
-            e1 = (got.float() - b1.float()).abs().max().item()
+            same = torch.equal(got, b1)
             ok = (torch.allclose(got.float(), want.float(), **KERNEL_TOL)
-                  and torch.allclose(got.float(), b1.float(), **KERNEL_TOL)
-                  and bool(torch.isfinite(got).all()))
+                  and same and bool(torch.isfinite(got).all()))
             print(f"[nalar] {dtype_name} B3 over {iid}'s pool, layer "
                   f"{layer}: {len(sids)} sessions of "
                   f"{lengths.min().item()}..{lengths.max().item()} tokens; "
-                  f"max_abs_err {e:.3e} vs plain, {e1:.3e} vs "
-                  f"paged_decode_chunk T=1 (tol {KERNEL_TOL}) ok={ok}")
+                  f"max_abs_err {e:.3e} vs plain (tol {KERNEL_TOL}); "
+                  f"bitwise equal to paged_decode_chunk T=1: {same}; "
+                  f"ok={ok}")
             check(ok, f"B3 over the served pages of {iid} (layer {layer}) "
                       f"disagrees")
         seen += len(sids)
@@ -2555,7 +2612,7 @@ def hybrid_serve(torch, rt, model, params, counters, tally, prefill_chunk,
     if profile:
         profile_window(torch, engine, cfg, Request,
                        SamplingParams(max_new_tokens=16),
-                       names=("ring_split_kernel", "merge_splits_kernel"))
+                       names=("ring_split_kernel", "merge_splits"))
         if prefill_chunk == 0:
             admission_window(torch, engine, cfg, Request,
                              SamplingParams(max_new_tokens=4), "hybrid",

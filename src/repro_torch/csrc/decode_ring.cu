@@ -36,8 +36,9 @@
 // written, NaN or not, never reaches P.V), computes its n_rep query rows'
 // partial state (the row max m, l = sum exp(s - m) and acc = sum exp(s -
 // m) v) over its slots, and writes it to f32 scratch.  A second launch,
-// `merge_splits_kernel` (csrc/split_merge.cuh, B3's merge), weighs each
-// row's splits by exp(m_s - max m) in split order.
+// the merge shared with the paged kernels (csrc/split_merge.cuh,
+// launch_merge), weighs each row's splits by exp(m_s - max m) in a fixed
+// order.
 //
 // Why the split is fixed: the split layout depends on C and the type alone,
 // never on the batch, the positions or the window, so a row's slots are
@@ -63,13 +64,14 @@
 // precision witness.  Every row of a block sees the same slots.
 //
 // Measured with chip_smoke.py's guarded, L2-flushed timer on an NVIDIA
-// H100 80GB HBM3 at 700.00 W, bf16, B = 8, over the shared split block:
-// 0.0204 ms at recurrentgemma's C = 1024 and 0.0288 at C = 2048 (one kv
-// head of 16 queries, D = 256, wrapped; repeat + SDPA 0.2056 and 0.3796,
-// byte bound 0.00254 and 0.00505), 0.0186 at qwen3's decode_step shape
-// (C = 1024, 8 kv heads of 2, D = 128, pos 264..319; bound 0.00288) and
-// 0.0329 at pos 975..1020 (bound 0.00981); before it shared the block,
-// 0.0218, 0.0307, 0.0183 and 0.0349.  ptxas: 117 registers (bf16), 56
+// H100 80GB HBM3 at 700.00 W, bf16, B = 8, over the shared split block
+// and the parallel merge: 0.0166 ms at recurrentgemma's C = 1024 and
+// 0.0202 at C = 2048 (one kv head of 16 queries, D = 256, wrapped; repeat
+// + SDPA 0.2092 and 0.3837, byte bound 0.00254 and 0.00505), 0.0159 at
+// qwen3's decode_step shape (C = 1024, 8 kv heads of 2, D = 128, pos
+// 264..319; bound 0.00288) and 0.0303 at pos 975..1020 (bound 0.00981);
+// over the merge before it, 0.0204, 0.0288, 0.0186 and 0.0329, and before
+// the block was shared, 0.0218, 0.0307, 0.0183 and 0.0349.  ptxas: 117 registers (bf16), 56
 // (f32), no spill; with __launch_bounds__(128) alone, not (128, 2), it
 // gave the bf16 kernel 96 registers and 16 bytes of spill stores.
 
@@ -189,10 +191,9 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
       part_ml, C, Hkv, n_rep, D, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  split_merge::merge_splits_kernel<T>
-      <<<B * Hkv * n_rep, split_merge::kThreads, 0, stream>>>(
-          part_acc, part_ml, static_cast<T*>(out), n_splits, D);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(split_merge::launch_merge<T>(
+      part_acc, part_ml, static_cast<T*>(out), B * Hkv * n_rep, n_splits, D,
+      stream));
 }
 
 }  // namespace

@@ -1,9 +1,13 @@
-// Split-KV paged chunk attention for Hopper (sm_90a).
+// Split-KV paged chunk attention for Hopper (sm_90a), and the one-token
+// paged decode as the same kernel at T = 1.
 //
-// Replaces the TPU kernel `paged_decode_chunk` (`_paged_chunk_kernel`) of
-// src/repro/kernels/paged_attention/paged_attention.py: T-token chunk
-// attention straight over the paged KV pool, the attention of every decode
-// and chunked-prefill step of the serving engine.
+// Replaces two TPU kernels of
+// src/repro/kernels/paged_attention/paged_attention.py: `paged_decode_chunk`
+// (`_paged_chunk_kernel`, B1), T-token chunk attention straight over the
+// paged KV pool, the attention of every decode and chunked-prefill step of
+// the serving engine; and `paged_decode` (`_paged_kernel`, B3), one-token
+// attention over the pool with each sequence's length in place of pos
+// (see "The one-token decode" below).
 //
 //   q          [B, T, H, D]            bf16 or f32, H = Hkv * n_rep
 //   k/v pages  [n_pages, P, Hkv, D]    same type as q
@@ -47,9 +51,9 @@
 // 16, staging one q tile at a time against the staged K/V, so R has no cap:
 // in bf16 q.K^T and P.V on mma.sync.m16n8k16 (P as bf16 hi + lo, V through
 // ldmatrix.trans; qwen3's T = 8 rows fill one m-tile, T = 1's 2 are
-// padded), in f32 on the CUDA cores, no TF32.  A second launch,
-// `merge_splits_kernel` (csrc/split_merge.cuh), weighs each row's splits by
-// exp(m_s - max m) in split order and writes out [B, T, H, D]: the
+// padded), in f32 on the CUDA cores, no TF32.  A second launch, the merge
+// (csrc/split_merge.cuh, launch_merge), weighs each row's splits by
+// exp(m_s - max m) in a fixed order and writes out [B, T, H, D]: the
 // partials' row (b T + t) H + head is out's row.
 //
 // The masking hazard: rows of one m-tile see different numbers of tokens
@@ -69,16 +73,34 @@
 // the ring kernel's bf16 split, which it timed faster than 64
 // (csrc/decode_ring.cu); no other size was timed here.
 //
+// The one-token decode (B3): paged_decode_attention() launches this kernel
+// at T = 1 with each sequence's length as pos and a shift of -1, so the
+// block's rows are the n_rep query heads of kv head h, each seeing table
+// positions up to lengths[b] - 1 (clamped to max_pages P), and a sequence
+// of length 0 sees nothing and gets zeros.  Its bound is the same: bytes,
+// 4 * len * D per (b, kv head) in bf16 against n_rep flops a byte.  Each
+// of its rows is thus, by construction, what B1 gives at T = 1 with pos =
+// lengths - 1, and bitwise the same at any batch.  It replaces B3's own
+// kernel: one block per page table entry (512 splits of 16 tokens at
+// P = 16), scores one key at a time with warp shuffles and P.V one (row,
+// d) a thread on the CUDA cores, shared memory growing with P (the wrapper
+// refused large pages), and a merge that walked every page's split in
+// series.
+//
 // ptxas (-Xptxas -v, __launch_bounds__(128, 2)): 124 registers in bf16, 64
-// in f32, 32 for the merge, no spill.  Measured with chip_smoke.py's
-// guarded, L2-flushed timer on an NVIDIA H100 80GB HBM3 at 700.00 W, bf16,
-// qwen3-0.6b's serving shapes (B = 8, 8 kv heads of 2, D = 128, P = 64,
-// 16 table entries, contexts 32..544): 0.0192 ms at T = 8 (the one block
-// per (b, kv head) kernel before it: 0.1456; gather + SDPA 0.1449; byte
-// bound 0.00249) and 0.0200 at T = 1 (was 0.0550; gather + SDPA 0.1362;
-// bound 0.00298); past the old cap, R = 256 (T = 16, 4 kv heads of 16)
-// 0.0815 ms (gather + SDPA 0.4123; bound 0.00296), where the 16 m-tiles
-// of a block run one after another.
+// in f32, no spill.  Measured with chip_smoke.py's guarded, L2-flushed
+// timer on an NVIDIA H100 80GB HBM3 at 700.00 W, bf16, over the merge of
+// csrc/split_merge.cuh, qwen3-0.6b's shapes (8 kv heads of 2, D = 128,
+// P = 64).  B1 at B = 8, 16 table entries, contexts 32..544: 0.0166 ms at
+// T = 8 (the one block per (b, kv head) kernel before it: 0.1456; gather
+// + SDPA 0.1462; byte bound 0.00249) and 0.0173 at T = 1 (was 0.0550;
+// gather + SDPA 0.1374; bound 0.00298); past the old cap, R = 256 (T =
+// 16, 4 kv heads of 16) 0.0773 ms (gather + SDPA 0.4126; bound 0.00296),
+// where the 16 m-tiles of a block run one after another.  B3: 0.0162 ms
+// at B = 8, lengths 264..319 (B3's own kernel: 0.0291; byte bound
+// 0.00280), 0.0304 at 975..1020 (0.0515; 0.00972), 0.0319 for one
+// 8192-token sequence (0.0835; 0.01002) and 0.0734 for one of 32768
+// tokens (gather + SDPA 0.4927; bound 0.04007).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,7 +123,7 @@ using split_attn::kThreads;
 // The R = T * n_rep query rows of kv head h of sequence b: row r is chunk
 // token t = r / n_rep of query head h * n_rep + r % n_rep, row (b T + t) H
 // + h n_rep + r % n_rep of q, the partials and out, and sees split columns
-// up to pos + t - t0.
+// up to p0 + t - t0 (p0 = pos[b] + shift).
 struct ChunkRows {
   int64_t bT;  // b * T
   int n, n_rep, H, h, last0;  // last0 = pos - t0
@@ -115,22 +137,23 @@ struct ChunkRows {
 };
 
 // One block per (split j, kv head h, sequence b): the partial state of
-// split j for each of the block's R query rows.  A row of D elements must
-// be a multiple of 16 bytes and the tensors 16-byte aligned (the wrapper
-// checks).
+// split j for each of the block's R query rows.  The chunk's first
+// position is pos[b] + shift: B1 passes its positions and 0, B3 its
+// lengths and -1.  A row of D elements must be a multiple of 16 bytes and
+// the tensors 16-byte aligned (the wrapper checks).
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                    const T* __restrict__ v_pages,
                    const int* __restrict__ page_table,
                    const int* __restrict__ pos, float* __restrict__ part_acc,
-                   float* __restrict__ part_ml, int Tq, int Hkv, int n_rep,
-                   int D, int P, int max_pages, float scale) {
+                   float* __restrict__ part_ml, int shift, int Tq, int Hkv,
+                   int n_rep, int D, int P, int max_pages, float scale) {
   using Split = split_attn::Split<T>;
   constexpr int S = Split::kSplit;
   const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int n_splits = gridDim.x;
-  const int p0 = pos[b], t0 = j * S;
+  const int p0 = pos[b] + shift, t0 = j * S;
   const ChunkRows rows{static_cast<int64_t>(b) * Tq, Tq * n_rep, n_rep,
                        Hkv * n_rep, h, p0 - t0};
   // positions [t0, end) may be seen by some row of the block
@@ -162,8 +185,8 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* pt,
            const void* pos, float* part_acc, float* part_ml, void* out,
-           int B, int Tq, int Hkv, int n_rep, int D, int P, int max_pages,
-           float scale, cudaStream_t stream) {
+           int shift, int B, int Tq, int Hkv, int n_rep, int D, int P,
+           int max_pages, float scale, cudaStream_t stream) {
   using Split = split_attn::Split<T>;
   cudaError_t err = cudaFuncSetAttribute(
       paged_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -174,14 +197,13 @@ int launch(const void* q, const void* k, const void* v, const void* pt,
                           Split::smem_bytes(D), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(pt),
-      static_cast<const int*>(pos), part_acc, part_ml, Tq, Hkv, n_rep, D, P,
-      max_pages, scale);
+      static_cast<const int*>(pos), part_acc, part_ml, shift, Tq, Hkv, n_rep,
+      D, P, max_pages, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  split_merge::merge_splits_kernel<T>
-      <<<B * Tq * Hkv * n_rep, split_merge::kThreads, 0, stream>>>(
-          part_acc, part_ml, static_cast<T*>(out), n_splits, D);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(split_merge::launch_merge<T>(
+      part_acc, part_ml, static_cast<T*>(out), B * Tq * Hkv * n_rep,
+      n_splits, D, stream));
 }
 
 }  // namespace
@@ -203,10 +225,32 @@ extern "C" int paged_chunk_attention(const void* q, const void* k_pages,
   float* ml = static_cast<float*>(part_ml);
   if (is_bf16)
     return launch<__nv_bfloat16>(q, k_pages, v_pages, page_table, pos, acc,
-                                 ml, out, B, Tq, Hkv, n_rep, D, P, max_pages,
-                                 scale, s);
-  return launch<float>(q, k_pages, v_pages, page_table, pos, acc, ml, out, B,
-                       Tq, Hkv, n_rep, D, P, max_pages, scale, s);
+                                 ml, out, 0, B, Tq, Hkv, n_rep, D, P,
+                                 max_pages, scale, s);
+  return launch<float>(q, k_pages, v_pages, page_table, pos, acc, ml, out, 0,
+                       B, Tq, Hkv, n_rep, D, P, max_pages, scale, s);
+}
+
+// The one-token decode: q and out [B, H, D], lengths [B] int32 the tokens
+// each sequence sees; part_acc [B*H, n_splits, D] and part_ml [B*H,
+// n_splits, 2] as above.  The chunk kernel at T = 1 with pos = lengths - 1.
+extern "C" int paged_decode_attention(const void* q, const void* k_pages,
+                                      const void* v_pages,
+                                      const void* page_table,
+                                      const void* lengths, void* part_acc,
+                                      void* part_ml, void* out, int B,
+                                      int Hkv, int n_rep, int D, int P,
+                                      int max_pages, float scale,
+                                      int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* acc = static_cast<float*>(part_acc);
+  float* ml = static_cast<float*>(part_ml);
+  if (is_bf16)
+    return launch<__nv_bfloat16>(q, k_pages, v_pages, page_table, lengths,
+                                 acc, ml, out, -1, B, 1, Hkv, n_rep, D, P,
+                                 max_pages, scale, s);
+  return launch<float>(q, k_pages, v_pages, page_table, lengths, acc, ml,
+                       out, -1, B, 1, Hkv, n_rep, D, P, max_pages, scale, s);
 }
 
 extern "C" const char* paged_chunk_error_string(int code) {

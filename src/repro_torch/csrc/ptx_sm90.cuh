@@ -1,6 +1,7 @@
 // PTX helpers shared by the port's Hopper (sm_90a) kernels: asynchronous
-// copies into shared memory (cp.async), ldmatrix, and the bf16 tensor-core
-// product mma.sync.m16n8k16 with f32 accumulation.  Every csrc/*.cu that
+// copies into shared memory (cp.async), ldmatrix, the bf16 tensor-core
+// product mma.sync.m16n8k16 with f32 accumulation, and the two halves of
+// programmatic dependent launch (griddepcontrol).  Every csrc/*.cu that
 // needs them includes this header and still builds into a library of its
 // own (kernels/_build.py hashes the header into each library's name).
 
@@ -95,6 +96,20 @@ __device__ __forceinline__ void split(float a, float b, uint32_t& hi,
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   hi = as_u32(h);
   lo = as_u32(__floats2bfloat162_rn(a - __low2float(h), b - __high2float(h)));
+}
+
+// Programmatic dependent launch.  A kernel launched after this one on its
+// stream with cudaLaunchAttributeProgrammaticStreamSerialization may be
+// scheduled once every block of this grid has issued launch_dependents (or
+// exited); it must execute griddep_wait() before it reads anything this
+// grid writes.  Both are no-ops where no such launch is involved.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+// Wait until every grid this one depends on has completed and its writes
+// are visible.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 }  // namespace

@@ -18,7 +18,10 @@
 //     rows.last(r).  A row that sees no column of the split (or a padding
 //     row of the last m-tile) writes (m = -inf, l = 0) and computes no
 //     exp(-inf - (-inf)): its max is replaced by 0 in the exponent, so every
-//     p is exp(-inf) = 0.  The merge (csrc/split_merge.cuh) passes over it.
+//     p is exp(-inf) = 0.  The merge (csrc/split_merge.cuh) passes over it;
+//   * issues griddepcontrol.launch_dependents once the block's partials
+//     are written, so the merge, launched as a programmatic dependent,
+//     may be scheduled early (it waits for the whole grid before reading).
 //
 // A kernel's Rows type maps its rows to memory:
 //   int n;                                   rows of the block
@@ -303,6 +306,7 @@ struct Split<__nv_bfloat16> {
         }
       }
     }
+    griddep_launch_dependents();  // this block's partials are written
   }
 };
 
@@ -406,6 +410,7 @@ struct Split<float> {
       }
       __syncthreads();  // the next m-tile rewrites q and the scores
     }
+    griddep_launch_dependents();  // this block's partials are written
   }
 };
 

@@ -35,7 +35,6 @@ SOURCES: Dict[str, str] = {
     "moe_ffn": "moe_ffn.cu",
     "ssd": "ssd.cu",
     "rglru_scan": "rglru_scan.cu",
-    "paged_decode": "paged_decode.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,10 +1,9 @@
 """Wrappers of the decode attention kernels: split-KV paged chunk
-attention (``csrc/paged_chunk.cu``), one-token split-KV paged decode
-(``csrc/paged_decode.cu``) and split-KV ring decode attention
-(``csrc/decode_ring.cu``).  The paged chunk and ring kernels share their
-split block (``csrc/split_attention.cuh``) and its fixed split of
-``SPLIT[dtype]`` keys; all three share their merge
-(``csrc/split_merge.cuh``).
+attention and the one-token paged decode, which is the same kernel at one
+token (``csrc/paged_chunk.cu``), and split-KV ring decode attention
+(``csrc/decode_ring.cu``).  Both kernels run the split block of
+``csrc/split_attention.cuh`` over fixed splits of ``SPLIT[dtype]`` keys,
+then the merge of ``csrc/split_merge.cuh``.
 
 A CUDA tensor launches the hand-written kernel and the call raises if it
 cannot; a CPU tensor takes the plain version in :mod:`.ref`.  Nothing else
@@ -26,7 +25,7 @@ from .ref import decode_ring_ref, paged_decode_chunk_ref, paged_decode_ref
 
 _SMEM_LIMIT = 232_448     # bytes of shared memory a block may use (H100)
 
-# keys of one split of the split-KV kernels (B1 and B4), by type: 128 on
+# keys of one split of the split-KV kernels (B1, B3 and B4), by type: 128 on
 # the tensor cores (bf16), 64 on the CUDA cores (f32, whose 128 keys of K
 # and V would not fit in shared memory at D = 256) (must match
 # ``Split<T>::kSplit`` in csrc/split_attention.cuh)
@@ -57,9 +56,17 @@ def _check_split_block(D: int, dtype: torch.dtype) -> None:
                          f"{_SMEM_LIMIT})")
 
 
+# splits the merge takes: it keeps a row's weights in 32 KB of shared
+# memory (must match ``split_merge::kMaxSplits`` in csrc/split_merge.cuh)
+MERGE_MAX_SPLITS = 8192
+
+
 def _split_scratch(rows: int, n_splits: int, D: int, device):
     """One f32 buffer: ``part_acc`` [rows, n_splits, D], then ``part_ml``
     [rows, n_splits, 2].  Returns it and the addresses of the two."""
+    if n_splits > MERGE_MAX_SPLITS:
+        raise ValueError(f"{n_splits} splits exceed the merge's "
+                         f"{MERGE_MAX_SPLITS}")
     scratch = torch.empty(rows * n_splits * (D + 2), dtype=torch.float32,
                           device=device)
     part_acc = scratch.data_ptr()
@@ -78,11 +85,12 @@ def paged_splits(max_pages: int, P: int, dtype: torch.dtype) -> int:
 
 def paged_scratch(rows: int, max_pages: int, P: int, D: int,
                   dtype: torch.dtype, device):
-    """The paged split kernel's f32 scratch for ``rows`` = B*T*H query
-    rows, one buffer: ``part_acc`` [rows, n_splits, D], then ``part_ml``
-    [rows, n_splits, 2], with n_splits = ``paged_splits(max_pages, P,
-    dtype)``; row (b*T + t)*H + head is row (b, t, head) of q and out.
-    Returns the buffer and the addresses of the two."""
+    """The paged split kernels' f32 scratch for ``rows`` = B*T*H query
+    rows (B*H for the one-token decode), one buffer: ``part_acc`` [rows,
+    n_splits, D], then ``part_ml`` [rows, n_splits, 2], with n_splits =
+    ``paged_splits(max_pages, P, dtype)``; row (b*T + t)*H + head is row
+    (b, t, head) of q and out.  Returns the buffer and the addresses of
+    the two."""
     return _split_scratch(rows, paged_splits(max_pages, P, dtype), D,
                           device)
 
@@ -177,21 +185,11 @@ paged_decode_chunk.launches = 0
 # ------------------------------------------------------- paged decode (B3)
 @functools.lru_cache(maxsize=None)
 def _decode_kernel():
-    lib = _build.load("paged_decode")
-    fn = lib.paged_decode_attention
+    fn = _build.load("paged_chunk").paged_decode_attention
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.paged_decode_error_string.argtypes = [ctypes.c_int]
-    lib.paged_decode_error_string.restype = ctypes.c_char_p
-    return fn, lib.paged_decode_error_string
-
-
-def _decode_smem_bytes(n_rep: int, D: int, P: int, elem: int) -> int:
-    """Dynamic shared memory of one page block (must match the kernel):
-    the page's K and V rows in their own type, q's rows, the scores and
-    the row states in f32."""
-    return 2 * elem * P * D + 4 * (n_rep * D + n_rep * P + 2 * n_rep)
+    return fn, _kernel()[1]
 
 
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
@@ -210,8 +208,15 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     The CUDA kernel returns zeros for it, the plain version (gather, then
     attention at ``pos = -1``) the mean of V over the gathered window.
 
-    The layout checks hold on every device, so the CPU path takes exactly
-    what the kernel takes."""
+    On the card one call is two kernel launches, the split kernel over
+    ``paged_splits(max_pages, P, q.dtype)`` fixed splits of the table (the
+    paged chunk kernel itself at T=1, with the n_rep query heads of a kv
+    head as a block's rows) and the merge, and counts once in
+    ``paged_decode.launches``.  Each row is bitwise what
+    ``paged_decode_chunk`` gives at T=1 with ``pos = lengths - 1``, and the
+    same at any batch.  Shared memory depends on D and the type alone, so
+    any page size is taken.  The layout checks hold on every device, so
+    the CPU path takes exactly what the kernel takes."""
     if q.dim() != 3:
         raise ValueError(f"q must be [B,H,D], got {tuple(q.shape)}")
     B, H, D = q.shape
@@ -241,29 +246,25 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode: unsupported device {q.device}")
     vec = 16 // q.element_size()
-    if D % vec or any(t.data_ptr() % 16 for t in (k_pages, v_pages)):
+    q_ptr, k_ptr, v_ptr = q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()
+    if D % vec or (q_ptr | k_ptr | v_ptr) % 16:
         raise ValueError(f"head dim must be a multiple of {vec} and the "
-                         f"pages 16-byte aligned")
-    smem = _decode_smem_bytes(n_rep, D, P, q.element_size())
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"a {P}-token page of head dim {D} with n_rep="
-                         f"{n_rep} needs {smem} bytes of shared memory "
-                         f"(limit {_SMEM_LIMIT})")
+                         f"tensors 16-byte aligned")
+    _check_split_block(D, q.dtype)
     maxp = page_table.shape[1]
     out = torch.empty_like(q)
     if B == 0 or maxp == 0:
         return out.zero_()
-    part_acc = torch.empty((B * H, maxp, D), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B * H, maxp, 2), dtype=torch.float32,
-                          device=q.device)
+    dev = q.device
+    # held until the launches are queued
+    scratch, part_acc, part_ml = paged_scratch(B * H, maxp, P, D, q.dtype,
+                                               dev)
     fn, err_str = _decode_kernel()
-    with torch.cuda.device(q.device):
-        stream = _build.current_stream(q.device)
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 page_table.data_ptr(), lengths.data_ptr(),
-                 part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
-                 B, Hkv, n_rep, D, P, maxp, float(scale),
+    with torch.cuda.device(dev):
+        stream = _build.current_stream(dev)
+        err = fn(q_ptr, k_ptr, v_ptr, page_table.data_ptr(),
+                 lengths.data_ptr(), part_acc, part_ml, out.data_ptr(), B,
+                 Hkv, n_rep, D, P, maxp, float(scale),
                  int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: "

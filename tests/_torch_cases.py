@@ -3,7 +3,7 @@
 The cases cover the hazards of the kernels: permuted page tables, -1
 padding, ragged positions, partial tail pages, valid pages wholly past a
 sequence's length, chunk lengths and sequence
-lengths that are no multiple of any tile, the paged split kernel's edges,
+lengths that are no multiple of any tile, the paged split kernels' edges,
 a windowed and a non-causal
 attention, ring caches whose positions wrap past the cache length
 (twice), with windows below, at and above it, the ring kernel's split
@@ -164,6 +164,41 @@ PAGED_DECODE_CASES = [
     (4, 4, 2, 1, 16, 16, 26, 4, 1),
     (5, 2, 3, 3, 8, 8, 16, 7, 2),
 ]
+
+
+# The one-token paged decode's split edges: seed, Hkv, n_rep, D, P, maxp,
+# lengths, holes ((b, entry) set to -1 below the row's length).  Lengths
+# 127, 128 and 129 on either side of a bf16 split boundary (and of the
+# second f32 one); pages of 48, which no split boundary lines up with (a
+# split straddles two pages); pages of 256, each spanning two bf16 splits
+# (four f32); a row of one token; a row filling its whole table; -1
+# entries past each row's length (the tables are -1 padded) and below it;
+# qwen3's 16-entry table of 64-token pages at a head dim of 32.
+PAGED_DECODE_SPLIT_EDGES = [
+    (60, 2, 2, 32, 48, 8, (127, 128, 129, 1, 300, 384), ()),
+    (61, 1, 4, 64, 256, 3, (127, 128, 129, 700), ()),
+    (62, 2, 2, 32, 16, 24, (128, 129, 127, 380), ((0, 2), (3, 10))),
+    (63, 2, 2, 32, 64, 16, (1, 64, 65, 1000, 1024), ()),
+]
+
+
+def paged_decode_inputs(case):
+    """(q, k_pages, v_pages, page_table, lengths, n_rep) as numpy of
+    ``"sweep"`` (the reference's sweep), a ``PAGED_DECODE_CASES`` entry or
+    a ``PAGED_DECODE_SPLIT_EDGES`` entry (a table holding the pages of
+    positions below each length, -1 past them and at its holes, and two
+    spare pool pages)."""
+    if case == "sweep":
+        return paged_decode_sweep(3) + (4,)
+    if isinstance(case[6], tuple):
+        seed, Hkv, n_rep, D, P, maxp, lengths, holes = case
+        q, kp, vp, pt, pos = paged_split_case(
+            seed, 1, Hkv, n_rep, D, P, maxp,
+            tuple(n - 1 for n in lengths), holes)
+        return q[:, 0], kp, vp, pt, pos + 1, n_rep
+    seed, B, Hkv, n_rep, D, P, n_pages, maxp, spare = case
+    return paged_decode_case(seed, B, Hkv, n_rep, D, P, n_pages, maxp,
+                             spare) + (n_rep,)
 
 
 FLASH_CASES = [

@@ -15,7 +15,10 @@ cores, P as bf16 hi + lo) of the batch they are launched in; NaN in the
 ring slots a row cannot see must not reach it.  The split-KV paged chunk
 kernel's rows must be bitwise independent of the batch and of the chunk:
 row t of a T-token launch at pos equals a one-token launch of it at
-pos + t; NaN in pool tokens no row sees must not reach it.  The SSD
+pos + t; NaN in pool tokens no row sees must not reach it.  The
+one-token paged decode must equal the paged chunk kernel at T=1 (pos =
+lengths - 1) bitwise, and its rows be bitwise independent of the batch.
+The SSD
 chunk scan is held relative to the largest reference value: y within 1e-2 in bf16 (the plain version also
 rounds the scores, the decayed score matrix and dt to bf16, the kernel
 only y) and 1e-3 in float32, against the plain version and against the
@@ -30,11 +33,12 @@ import pytest
 import torch
 
 from _torch_cases import (FLASH_CASES, MOE_CASES, PAGED_CASES,
-                          PAGED_DECODE_CASES, PAGED_SPLIT_EDGES, RGLRU_CASES,
-                          RING_CASES, RING_SPLIT_EDGES, SSD_CASES, moe_case,
-                          paged_case, paged_chunk_inputs, paged_decode_case,
-                          paged_decode_sweep, rglru_case, ring_inputs,
-                          ssd_case)
+                          PAGED_DECODE_CASES, PAGED_DECODE_SPLIT_EDGES,
+                          PAGED_SPLIT_EDGES, RGLRU_CASES, RING_CASES,
+                          RING_SPLIT_EDGES, SSD_CASES, moe_case, paged_case,
+                          paged_chunk_inputs, paged_decode_case,
+                          paged_decode_inputs, paged_split_case, rglru_case,
+                          ring_inputs, ssd_case)
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_bhsd_ref
 from repro_torch.kernels.moe_ffn import ops as moe_ops
@@ -54,6 +58,16 @@ CARD_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 # the serving path's shapes at full width: B=8, T=8, 16/8 heads, D=128,
 # P=64, the engine's default pool of 272 pages, 16 table entries
 MAIN_PAGED = (9, 8, 8, 8, 2, 128, 64, 272, 16)
+# B1 at T=8, B=8, qwen3's heads over tables of 48 and of 24 pages of 64
+# (contexts 0.3 to 1 of the table): 24 splits a row in bf16 on the first
+# and in f32 on the second, so the merge's warp-a-row kernel sums splits
+# 16..23 in its second stage, some of them empty (48 f32 splits and 12
+# bf16 ones take the other paths)
+MERGE_SECOND_STAGE = [
+    (25 + i, 8, 8, 2, 128, 64, maxp,
+     tuple(int(maxp * 64 * f) for f in (0.3, 0.5, 0.65, 0.7, 0.8, 0.9,
+                                         0.95)) + (maxp * 64 - 8,))
+    for i, maxp in enumerate((48, 24))]
 MAIN_FLASH = (9, 16, 500, 500, 128, True, None)
 # recurrentgemma-9b's prefill attention (16 heads of 256, window 2048): the
 # 512-token bucket of an admission, a 128 window over it, and a ragged one
@@ -132,7 +146,7 @@ def _paged_chunk_inputs(case, device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", PAGED_CASES + [MAIN_PAGED]
-                         + PAGED_SPLIT_EDGES)
+                         + PAGED_SPLIT_EDGES + MERGE_SECOND_STAGE)
 def test_paged_chunk_kernel_matches_plain(cuda_device, dtype, case):
     q, kp, vp, pt, pos, n_rep = _paged_chunk_inputs(case, cuda_device, dtype)
     D = q.shape[-1]
@@ -150,7 +164,8 @@ def test_paged_chunk_kernel_matches_plain(cuda_device, dtype, case):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [MAIN_PAGED, PAGED_SPLIT_EDGES[1],
                                   PAGED_SPLIT_EDGES[2], PAGED_SPLIT_EDGES[7],
-                                  PAGED_SPLIT_EDGES[8]])
+                                  PAGED_SPLIT_EDGES[8]]
+                         + MERGE_SECOND_STAGE)
 def test_paged_chunk_rows_do_not_depend_on_the_batch_or_the_chunk(
         cuda_device, dtype, case):
     """Each sequence of a launch equals, bitwise, a B=1 launch of it, and
@@ -209,22 +224,27 @@ def test_paged_chunk_kernel_never_reads_invisible_tokens(cuda_device, dtype,
 def _paged_decode_inputs(case):
     """B3's inputs for a card case: the reference's sweep, PAGED_CASES at
     T=1 (lengths = pos + 1), PAGED_DECODE_CASES (valid pages past the
-    length) and qwen3-0.6b's serving shapes (MAIN_PAGED_DECODE)."""
-    if case == "sweep":
-        return paged_decode_sweep(3) + (4,)
-    if len(case) == 9 and case in PAGED_CASES + [MAIN_PAGED]:
+    length), PAGED_DECODE_SPLIT_EDGES and qwen3-0.6b's serving shapes
+    (MAIN_PAGED_DECODE)."""
+    if case != "sweep" and len(case) == 9 and case in PAGED_CASES + [
+            MAIN_PAGED]:
         seed, B, _T, Hkv, n_rep, D, P, n_pages, maxp = case
         q, kp, vp, pt, pos = paged_case(seed, B, 1, Hkv, n_rep, D, P,
                                         n_pages, maxp)
         return q[:, 0], kp, vp, pt, pos + 1, n_rep
-    seed, B, Hkv, n_rep, D, P, n_pages, maxp, spare = case
-    return paged_decode_case(seed, B, Hkv, n_rep, D, P, n_pages, maxp,
-                             spare) + (n_rep,)
+    return paged_decode_inputs(case)
+
+
+def _paged_decode_card(case, device, dtype):
+    *arrs, n_rep = _paged_decode_inputs(case)
+    q, kp, vp = (torch.from_numpy(a).to(device, dtype) for a in arrs[:3])
+    pt, lengths = (torch.from_numpy(a).to(device) for a in arrs[3:])
+    return q, kp, vp, pt, lengths, n_rep
 
 
 # qwen3-0.6b's one-token decode over a served pool: B=8, 8 kv heads of 2,
 # D=128, pages of 64 and a 16-entry table, two spare pages per row; and one
-# 8192-token sequence (128 pages) whose splits span many blocks
+# 8192-token sequence (128 pages, 64 splits of 128 tokens in bf16)
 MAIN_PAGED_DECODE = [(20, 8, 8, 2, 128, 64, 272, 16, 2),
                      (21, 1, 8, 2, 128, 64, 130, 128, 0)]
 
@@ -232,24 +252,102 @@ MAIN_PAGED_DECODE = [(20, 8, 8, 2, 128, 64, 272, 16, 2),
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["sweep"] + PAGED_CASES + [MAIN_PAGED]
-                         + PAGED_DECODE_CASES + MAIN_PAGED_DECODE)
+                         + PAGED_DECODE_CASES + MAIN_PAGED_DECODE
+                         + PAGED_DECODE_SPLIT_EDGES)
 def test_paged_decode_kernel_matches_plain(cuda_device, dtype, case):
-    *arrs, n_rep = _paged_decode_inputs(case)
-    q, kp, vp = (torch.from_numpy(a).to(cuda_device, dtype) for a in arrs[:3])
-    pt, lengths = (torch.from_numpy(a).to(cuda_device) for a in arrs[3:])
+    """B3 within the card tolerance of its plain version (except where a -1
+    entry lies below a row's length: the plain version reads page 0 there,
+    the kernel skips it), and bitwise equal to the paged chunk kernel at
+    T=1 with pos = lengths - 1: the same table walk, split block and merge
+    over the same rows."""
+    q, kp, vp, pt, lengths, n_rep = _paged_decode_card(case, cuda_device,
+                                                       dtype)
     scale = q.shape[-1] ** -0.5
     n = paged_ops.paged_decode.launches
     got = paged_ops.paged_decode(q, kp, vp, pt, lengths, scale=scale,
                                  n_rep=n_rep)
     torch.cuda.synchronize()
     assert paged_ops.paged_decode.launches == n + 1
-    want = paged_decode_ref(q, kp, vp, pt, lengths, scale=scale, n_rep=n_rep)
-    torch.testing.assert_close(got.float(), want.float(), **CARD_TOL[dtype])
-    # the same function as the paged chunk kernel at T=1, pos = lengths - 1
+    P = kp.shape[1]
+    hole = any(int(pt[b, e]) < 0 for b in range(q.shape[0])
+               for e in range(-(-int(lengths[b]) // P)))
+    if not hole:
+        want = paged_decode_ref(q, kp, vp, pt, lengths, scale=scale,
+                                n_rep=n_rep)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **CARD_TOL[dtype])
     chunk = paged_ops.paged_decode_chunk(q[:, None].contiguous(), kp, vp, pt,
                                          lengths - 1, scale=scale,
                                          n_rep=n_rep)[:, 0]
-    torch.testing.assert_close(got.float(), chunk.float(), **CARD_TOL[dtype])
+    torch.cuda.synchronize()
+    assert torch.equal(got, chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["sweep", PAGED_DECODE_CASES[1]]
+                         + MAIN_PAGED_DECODE[:1] + PAGED_DECODE_SPLIT_EDGES)
+def test_paged_decode_rows_do_not_depend_on_the_batch(cuda_device, dtype,
+                                                      case):
+    """Each sequence of a B3 launch equals, bitwise, a B=1 launch of it:
+    the splits are fixed by the table's width, P and the type, and the
+    merge's order by the number of splits alone."""
+    q, kp, vp, pt, lengths, n_rep = _paged_decode_card(case, cuda_device,
+                                                       dtype)
+    kw = dict(scale=q.shape[-1] ** -0.5, n_rep=n_rep)
+    full = paged_ops.paged_decode(q, kp, vp, pt, lengths, **kw)
+    for b in range(q.shape[0]):
+        one = paged_ops.paged_decode(q[b:b + 1], kp, vp,
+                                     pt[b:b + 1].contiguous(),
+                                     lengths[b:b + 1], **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(one, full[b:b + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_takes_large_pages(cuda_device, dtype):
+    """Pages of 512 tokens at D=256: the first B3 kernel staged a whole
+    page in shared memory and refused this float32 case; the split kernel
+    stages fixed splits, so its shared memory depends on D and the type
+    alone."""
+    arrs = paged_decode_case(23, 3, 1, 2, 256, 512, 8, 2, 0)
+    q, kp, vp = (torch.from_numpy(a).to(cuda_device, dtype) for a in arrs[:3])
+    pt, lengths = (torch.from_numpy(a).to(cuda_device) for a in arrs[3:])
+    kw = dict(scale=256 ** -0.5, n_rep=2)
+    got = paged_ops.paged_decode(q, kp, vp, pt, lengths, **kw)
+    want = paged_decode_ref(q, kp, vp, pt, lengths, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_kernels_merge_many_splits(cuda_device, dtype):
+    """One 32768-token sequence (qwen3's 8 kv heads of 2, D=128): 256
+    splits a row in bf16 and 512 in float32 for the merge, through B1 (at
+    T=1), B3 over 514 pages of 64 and B4 over a 32768-slot cache, each
+    within the card tolerance of its plain version."""
+    q, kp, vp, pt, pos = (
+        torch.from_numpy(a).to(cuda_device) for a in paged_split_case(
+            24, 1, 8, 2, 128, 64, 512, (32767,)))
+    q, kp, vp = (x.to(dtype) for x in (q, kp, vp))
+    kw = dict(scale=128 ** -0.5, n_rep=2)
+    got = paged_ops.paged_decode_chunk(q, kp, vp, pt, pos, **kw)
+    want = paged_decode_chunk_ref(q, kp, vp, pt, pos, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **CARD_TOL[dtype])
+    got = paged_ops.paged_decode(q[:, 0].contiguous(), kp, vp, pt, pos + 1,
+                                 **kw)
+    want = paged_decode_ref(q[:, 0].contiguous(), kp, vp, pt, pos + 1, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **CARD_TOL[dtype])
+    idx = pt[0].long()
+    ck = kp[idx].reshape(1, 32768, 8, 128).contiguous()
+    cv = vp[idx].reshape(1, 32768, 8, 128).contiguous()
+    ring = dict(window=None, **kw)
+    got = paged_ops.decode_attention_kernel(q, ck, cv, pos, **ring)
+    want = decode_ring_ref(q, ck, cv, pos, **ring)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **CARD_TOL[dtype])
 
 
 @pytest.mark.cuda
@@ -610,9 +708,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
             torch.zeros(2, 8, 1, 36, device=cuda_device, dtype=torch.bfloat16),
             torch.zeros(2, 8, 1, 36, device=cuda_device, dtype=torch.bfloat16),
             pt[:1], pos[:1], scale=1.0, n_rep=2)
+    # B3's shared memory grows with the head dim, not the page size: a
+    # 64-key f32 split at D=512 needs 299,520 bytes
     with pytest.raises(ValueError, match="shared memory"):
-        big = torch.zeros(2, 512, 1, 256, device=cuda_device)
-        paged_ops.paged_decode(torch.zeros(1, 2, 256, device=cuda_device),
+        big = torch.zeros(2, 16, 1, 512, device=cuda_device)
+        paged_ops.paged_decode(torch.zeros(1, 2, 512, device=cuda_device),
                                big, big, pt[:1], pos[:1], scale=1.0, n_rep=2)
     x = torch.zeros(2, 8, 264, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):

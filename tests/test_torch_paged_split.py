@@ -6,10 +6,11 @@ table's positions into fixed splits of ``SPLIT[dtype]`` tokens
 (``ops.paged_splits``: 128 in bf16, 64 in float32), leaves each split's
 softmax state (m, l, acc) per query row over the tokens the row sees
 (position <= pos + t on a page that is not -1), and merges the splits with
-B3's weights exp(m_s - max m).  The CUDA source cannot run here, so
-:func:`split_emulation` repeats that algorithm in plain torch, split by
-split, with the kernel's arithmetic (``_torch_split``, shared with the ring
-kernel's emulation): the scores masked per row to -inf, the K and V of
+the shared merge's weights exp(m_s - max m).  The CUDA source cannot run
+here, so :func:`split_emulation` (``_torch_split.paged_chunk_emulation``)
+repeats that algorithm in plain torch, split by split, with the kernel's
+arithmetic (``_torch_split``, shared with the ring kernel's and the
+one-token paged decode's emulations): the scores masked per row to -inf, the K and V of
 tokens no row of the block sees (past pos + T - 1 or on a -1 entry)
 zero-filled, a row that sees none of a split left at l = 0, and in bf16 P
 fed to P.V as bf16 hi + lo.  It is held against the reference's Pallas
@@ -53,35 +54,7 @@ TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=4e-3, atol=4e-3)}
 
 
-def visible_tokens(page_table, pos, T, P):
-    """[B,T,C] whether chunk token t of sequence b sees table position c:
-    c <= pos[b] + t and its entry is not -1."""
-    C = page_table.shape[1] * P
-    present = (page_table >= 0).repeat_interleave(P, 1)          # [B,C]
-    qpos = pos.long()[:, None] + torch.arange(T)[None]           # [B,T]
-    return (torch.arange(C)[None, None] <= qpos[..., None]) \
-        & present[:, None]
-
-
-def split_emulation(q, k_pages, v_pages, page_table, pos, *, scale, n_rep,
-                    p_lo=True):
-    """The paged split kernel and its merge in plain torch -> [B,T,H,D]."""
-    B, T, H, D = q.shape
-    _n, P, Hkv, _ = k_pages.shape
-    C = page_table.shape[1] * P
-    idx = page_table.long().clamp(min=0)
-    k = k_pages[idx].reshape(B, C, Hkv, D)
-    v = v_pages[idx].reshape(B, C, Hkv, D)
-    # rows r = t * n_rep + rep of kv head g, as the kernel's block holds them
-    qg = q.reshape(B, T, Hkv, n_rep, D).transpose(1, 2).reshape(
-        B, Hkv, T * n_rep, D)
-    visible = visible_tokens(page_table, pos, T, P).repeat_interleave(
-        n_rep, 1)[:, None]                                      # [B,1,R,C]
-    m, l, acc = _torch_split.split_states(
-        qg, k, v, visible, paged_ops.SPLIT[q.dtype], scale=scale, p_lo=p_lo)
-    out = _torch_split.merge_states(m, l, acc, q.dtype)          # [B,G,R,D]
-    return out.reshape(B, Hkv, T, n_rep, D).transpose(1, 2).reshape(
-        B, T, H, D)
+split_emulation = _torch_split.paged_chunk_emulation
 
 
 def _inputs(case, dtype):
