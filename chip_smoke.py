@@ -45,7 +45,21 @@ the run with a non-zero exit and no result line:
              (the dense slot-cache plane, stepped by ``decode_chunk``, which
              launches none of the attention kernels); follow-up turns resume
              through ``gather_contiguous``.
-7. moe     — granite-moe-1b-a400m at full width (random weights from a
+7. spec    — speculative decoding on the paged plane over the same model,
+             with a one-layer self-draft (``truncated_draft``, spec_k=3):
+             the serve trace on a plain and a speculating engine in bf16
+             (timed; spec rounds, acceptance and B1's launches by chunk
+             width printed, B1 held to 28 launches a step and to launches
+             at T=4; token agreement and committed K/V bytes reported),
+             then in float32, where the speculating engine's greedy tokens
+             must equal the plain engine's (or differ only at a tie), and
+             so must a full-depth self-draft's (both waves, prompts cut to
+             their last 64 tokens), which must accept at least 0.9 of its
+             proposals (full accepts and bonus tokens); whether
+             bf16 projections give the same bits at M = B and 4B rows; and
+             a seeded stochastic run (temperature 0.8, seed 17) twice on
+             fresh engines, which must give the same tokens.
+8. moe     — granite-moe-1b-a400m at full width (random weights from a
              seed; qwen3-0.6b freed first): the serve trace on the paged
              plane and on the dense plane, in bf16 (timed; 10 steps of a
              third wave profiled on the paged plane) and in float32 (the
@@ -56,7 +70,7 @@ the run with a non-zero exit and no result line:
              planes' agreement is reported.  Then next-token logits of two
              prompts through prefill, a paged step and ``decode_step`` on
              the card, bf16 and float32, against the CPU in float32.
-8. ssm     — mamba2-130m at full width (random weights from a seed;
+9. ssm     — mamba2-130m at full width (random weights from a seed;
              granite freed first) on the engine's state-cache plane, bf16:
              the serve trace on a ``prefill_chunk=0`` engine (24 chunk-scan
              launches per admission) and on a ``prefill_chunk=8`` engine
@@ -70,7 +84,7 @@ the run with a non-zero exit and no result line:
              float32 prefill (the scan) against ``decode_chunk`` over the
              same prompt (the recurrence); and the fused step against the
              per-token masked step in float32 (the same greedy tokens).
-9. hybrid  — recurrentgemma-9b at full width (random weights from a seed;
+10. hybrid — recurrentgemma-9b at full width (random weights from a seed;
              mamba2 freed first; 38 layers, 26 RG-LRU and 12 local
              attention, head_dim 256, window 2048) on the state-cache
              plane.  First its kernels at its widths: the RG-LRU scan
@@ -1188,13 +1202,14 @@ def serve_trace(vocab):
     return [wave1, wave2]
 
 
-def run_trace(engine, vocab, Request, sampling):
-    """Serve both waves of :func:`serve_trace`, each until the engine is
-    idle.  Returns (requests, per-step host ms, wall seconds); every step
-    ends with the greedy tokens copied to the host, which synchronises."""
+def run_trace(engine, vocab, Request, sampling, waves=None):
+    """Serve ``waves`` (both waves of :func:`serve_trace` by default), each
+    until the engine is idle.  Returns (requests, per-step host ms, wall
+    seconds); every step ends with the greedy tokens copied to the host,
+    which synchronises."""
     reqs, step_ms = [], []
     t0 = time.perf_counter()
-    for wave in serve_trace(vocab):
+    for wave in waves or serve_trace(vocab):
         for sid, prompt in wave:
             req = Request.make(prompt, session_id=sid, sampling=sampling)
             engine.submit(req)
@@ -1565,6 +1580,279 @@ def phase_dense(torch, rt, cfg, model, params, counters, paged_tokens):
           f"{engine.pool.stats}; {same}/{len(reqs)} requests with the paged "
           f"plane's tokens (bf16); launches {launches}")
     del engine
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- phase spec
+class WidthLaunches:
+    """B1's launches inside a model's paged chunk steps, by chunk width T:
+    the kernel wrapper's count read before and after every
+    ``decode_chunk_paged`` call (the engine looks the entry point up on the
+    model at every call)."""
+
+    def __init__(self, model, counter):
+        self.model, self.fn = model, model.decode_chunk_paged
+        self.reset()
+
+        def counted(*args, **kw):
+            T, before = int(args[1].shape[1]), counter.launches
+            out = self.fn(*args, **kw)
+            self.calls[T] = self.calls.get(T, 0) + 1
+            self.launches[T] = (self.launches.get(T, 0) + counter.launches
+                                - before)
+            return out
+        model.decode_chunk_paged = counted
+
+    def reset(self):
+        self.calls, self.launches = {}, {}
+
+    def restore(self):
+        self.model.decode_chunk_paged = self.fn
+
+
+def record_verified_rows(engine, rows_of):
+    """Add to ``rows_of`` (see :func:`record_next_token_rows`) the logits
+    row behind each token a verification round emits: row j of the slot's
+    verified chunk for its j-th token."""
+    verify = engine._verify_slot
+
+    def recording(req, slot, drafts, t_prev, pos0, logits, greedy_all, now):
+        n = len(req.generated)
+        verify(req, slot, drafts, t_prev, pos0, logits, greedy_all, now)
+        for j in range(len(req.generated) - n):
+            rows_of.setdefault(req.request_id, []).append(
+                logits[slot, j].clone())
+
+    engine._verify_slot = recording
+
+
+def spec_run(torch, rt, model, params, draft, counters, widths, sampling,
+             label, waves=None, record=True):
+    """A trace (the serve trace by default) on a fresh paged engine, plain
+    (``draft`` None) or speculating with ``draft`` = (model, params) at
+    spec_k=3, the launch counters set to 0 just before and read just after.
+    Holds every request to its tokens, the pool's invariants and B1's
+    launches (each inside a target step, 28 a step), and a speculating
+    engine to spec rounds and B1 launches at T=4.  Returns the engine, the
+    requests and [(tokens, logits rows)] per request (rows when
+    ``record``)."""
+    from repro_torch.serving import Request
+
+    cfg, L = model.cfg, model.cfg.n_layers
+    kw = {} if draft is None else dict(draft_model=draft[0],
+                                       draft_params=draft[1], spec_k=3,
+                                       spec_min_accept=0.0)
+    engine = rt.InferenceEngine(model, params, max_batch=8, max_seq=1024,
+                                page_size=64, prefill_chunk=8, **kw)
+    rows_of = {}
+    if record:
+        rows_of = record_next_token_rows(engine)
+        record_verified_rows(engine, rows_of)
+    draft_s = [0.0, 0]
+    if draft is not None:
+        # the draft's host wall per call (each ends with its greedy tokens
+        # on the host, which synchronises)
+        propose = engine._spec.propose
+
+        def timed(want):
+            t = time.perf_counter()
+            out = propose(want)
+            draft_s[0] += time.perf_counter() - t
+            draft_s[1] += 1
+            return out
+        engine._spec.propose = timed
+    widths.reset()
+    for c in counters.values():
+        c.launches = 0
+    reqs, step_ms, wall = run_trace(engine, cfg.vocab_size, Request,
+                                    sampling, waves)
+    launches = {name: c.launches for name, c in counters.items()}
+    m = engine.metrics
+    b1 = launches["paged_decode_chunk"]
+    check(all(r.finished and len(r.generated) == sampling.max_new_tokens
+              for r in reqs), f"spec, {label}: not every request finished "
+          f"with {sampling.max_new_tokens} tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          f"spec, {label}: a token is outside the vocabulary")
+    engine.pool.check_invariants()
+    check(b1 > 0 and b1 == sum(widths.launches.values()) and all(
+        widths.launches[T] == L * n for T, n in widths.calls.items()),
+        f"spec, {label}: B1 launched {b1} times, by chunk width "
+        f"{widths.launches} in {widths.calls} paged steps (want {L} a step)")
+    if draft is not None:
+        check(m.spec_rounds > 0 and widths.launches.get(4, 0) > 0,
+              f"spec, {label}: {m.spec_rounds} spec rounds, B1 launches by "
+              f"width {widths.launches}")
+    print(f"[spec] {label}: {len(reqs)} requests, {m.tokens_generated} "
+          f"tokens in {wall:.2f} s: {m.tokens_generated / wall:.1f} "
+          f"generated tok/s; {m.decode_steps} steps, step ms p50 "
+          f"{np.percentile(step_ms, 50):.2f} p99 "
+          f"{np.percentile(step_ms, 99):.2f}; spec_rounds={m.spec_rounds} "
+          f"spec_proposed={m.spec_proposed} spec_accepted={m.spec_accepted} "
+          f"spec_acceptance={m.spec_acceptance:.3f} decode_tokens_per_step="
+          f"{m.decode_tokens_per_step:.3f}; B1 launches {b1}, at T=4 "
+          f"{widths.launches.get(4, 0)} (by width "
+          f"{dict(sorted(widths.launches.items()))}); draft propose "
+          f"{draft_s[0] * 1e3:.1f} ms in {draft_s[1]} calls "
+          f"({100 * draft_s[0] * 1e3 / sum(step_ms):.1f} % of the steps' "
+          f"wall)")
+    out = [(list(r.generated), rows_of.get(r.request_id, [])) for r in reqs]
+    return engine, reqs, out
+
+
+def committed_pages_equal(torch, plain, spec, reqs_a, reqs_b):
+    """For every session whose turns got the same tokens on both engines:
+    whether its committed K/V bytes are bitwise equal.  Returns (equal,
+    compared)."""
+    toks = {}
+    for ra, rb in zip(reqs_a, reqs_b):
+        toks.setdefault(ra.session_id, []).append(
+            ra.generated == rb.generated)
+    equal = compared = 0
+    for sid, same in toks.items():
+        a = plain.pool.gather_contiguous(sid, plain.max_seq)
+        b = spec.pool.gather_contiguous(sid, spec.max_seq)
+        if not all(same) or a is None or b is None:
+            continue
+        compared += 1
+        n = a[2]
+        equal += (n == b[2] and torch.equal(a[0][:, :n], b[0][:, :n])
+                  and torch.equal(a[1][:, :n], b[1][:, :n]))
+    return equal, compared
+
+
+def projection_rows_bitwise(torch, cfg, params, batch=8):
+    """Whether a bf16 projection's rows are bitwise the same at M = B rows
+    (a one-token step) and at M = 4B (a verify chunk of T=4), layer 0's
+    weights, for each projection of the step.  Reported, not held."""
+    lay, emb = params["layers"], params["embed"]
+    dev = emb["tok"].device
+    g = torch.Generator(device=dev).manual_seed(7)
+    D, H, Dh, Fd = cfg.d_model, cfg.n_heads, cfg.head_dim_, cfg.d_ff
+    projections = {
+        "wq": ((D,), lambda x: torch.einsum("bsd,dhk->bshk", x,
+                                            lay["attn"]["wq"][0])),
+        "wk": ((D,), lambda x: torch.einsum("bsd,dhk->bshk", x,
+                                            lay["attn"]["wk"][0])),
+        "wo": ((H, Dh), lambda x: torch.einsum("bshk,hkd->bsd", x,
+                                               lay["attn"]["wo"][0])),
+        "w_gate": ((D,), lambda x: x @ lay["mlp"]["w_gate"][0]),
+        "w_down": ((Fd,), lambda x: x @ lay["mlp"]["w_down"][0]),
+        "unembed": ((D,), lambda x: torch.einsum("...d,vd->...v", x,
+                                                 emb["tok"])),
+    }
+    out = {}
+    for name, (shape, fn) in projections.items():
+        x = torch.randn((batch, 4) + shape, generator=g, device=dev,
+                        dtype=torch.float32).to(torch.bfloat16)
+        chunk = fn(x)
+        out[name] = all(torch.equal(chunk[:, t], fn(x[:, t:t + 1])[:, 0])
+                        for t in range(4))
+    return out
+
+
+def phase_spec(torch, rt, cfg, model, params, counters):
+    """Speculative decoding on the paged plane over the serve model with a
+    one-layer self-draft (``truncated_draft``): the serve trace on a plain
+    and on a speculating engine in bf16 (timed; token agreement and
+    committed K/V bytes reported), then in float32, where the speculating
+    engine's greedy tokens are held to the plain engine's (the tie rule of
+    ``planes_agree``), and so are those of a full-depth self-draft on both
+    waves' prompts cut to their last 64 tokens, which must accept at least
+    0.9 of its proposals; whether bf16 projections are bitwise the same at
+    M = B and 4B; and a seeded stochastic run (temperature 0.8, seed 17; the
+    first wave's prompts cut to 64 tokens) twice on fresh engines, which
+    must give the same tokens."""
+    from repro_torch.serving import SamplingParams
+    from repro_torch.serving.speculative import truncated_draft
+
+    t0 = time.perf_counter()
+    counter = counters["paged_decode_chunk"]
+    greedy = SamplingParams(max_new_tokens=32)
+    f32_model = rt.build_model(cfg.replace(dtype="float32"))
+    f32_params = to_f32(params, device=params["embed"]["tok"].device)
+    runs = {}
+    for mdl, prm in ((model, params), (f32_model, f32_params)):
+        widths = WidthLaunches(mdl, counter)
+        draft = truncated_draft(mdl, prm, 1)
+        dtype = mdl.cfg.dtype
+        try:
+            plain, reqs_p, runs[dtype, False] = spec_run(
+                torch, rt, mdl, prm, None, counters, widths, greedy,
+                f"{dtype} plain")
+            spec, reqs_s, runs[dtype, True] = spec_run(
+                torch, rt, mdl, prm, draft, counters, widths, greedy,
+                f"{dtype} speculating")
+            pairs = [("", plain, spec, reqs_p, reqs_s)]
+            if dtype == "float32":
+                # a draft of the target's full depth proposes what the
+                # target decodes: its rounds commit k+1 positions, take the
+                # bonus token and roll the draft back past a full accept.
+                # Both waves on their prompts' last 64 tokens keep the
+                # draft's catch-up over the prompts short.
+                short = [[(sid, prompt[-64:]) for sid, prompt in wave]
+                         for wave in serve_trace(cfg.vocab_size)]
+                plain_s, reqs_ps, runs["short", False] = spec_run(
+                    torch, rt, mdl, prm, None, counters, widths, greedy,
+                    f"{dtype} plain, prompts cut to 64", waves=short)
+                full, reqs_f, runs["short", True] = spec_run(
+                    torch, rt, mdl, prm,
+                    truncated_draft(mdl, prm, mdl.cfg.n_layers), counters,
+                    widths, greedy,
+                    f"{dtype} speculating, full-depth draft, prompts cut to "
+                    f"64", waves=short)
+                m = full.metrics
+                check(m.spec_accepted >= 0.9 * m.spec_proposed,
+                      f"spec, full-depth draft: {m.spec_accepted} of "
+                      f"{m.spec_proposed} proposals accepted (want >= 0.9)")
+                pairs.append((", full-depth draft", plain_s, full, reqs_ps,
+                              reqs_f))
+                del plain_s, full, reqs_ps, reqs_f
+        finally:
+            widths.restore()
+        for label, a, b, reqs_a, reqs_b in pairs:
+            equal, compared = committed_pages_equal(torch, a, b, reqs_a,
+                                                    reqs_b)
+            print(f"[spec] {dtype}{label}: committed K/V bytes bitwise equal "
+                  f"for {equal}/{compared} sessions with equal tokens")
+        del plain, spec, reqs_p, reqs_s, pairs
+        torch.cuda.empty_cache()
+    planes_agree(torch, "bfloat16 plain vs speculating",
+                 runs["bfloat16", False], runs["bfloat16", True], tag="spec")
+    planes_agree(torch, "float32 plain vs speculating",
+                 runs["float32", False], runs["float32", True],
+                 tol=F32_REL_L2_TOL, tag="spec")
+    planes_agree(torch, "float32 plain vs speculating, full-depth draft",
+                 runs["short", False], runs["short", True],
+                 tol=F32_REL_L2_TOL, tag="spec")
+    del runs, f32_model, f32_params
+    torch.cuda.empty_cache()
+    print(f"[spec] bf16 projection rows bitwise equal at M = B and 4B: "
+          f"{projection_rows_bitwise(torch, cfg, params)}")
+
+    widths = WidthLaunches(model, counter)
+    draft = truncated_draft(model, params, 1)
+    # the first wave's sessions on their prompts' first 64 tokens: eight
+    # prefill steps, then decoding
+    wave = [(sid, prompt[:64]) for sid, prompt in serve_trace(
+        cfg.vocab_size)[0]]
+    sampled = []
+    try:
+        for i in range(2):
+            engine, _, out = spec_run(
+                torch, rt, model, params, draft, counters, widths,
+                SamplingParams(temperature=0.8, seed=17, max_new_tokens=32),
+                f"bfloat16 speculating, temperature 0.8 seed 17, run {i}",
+                waves=[wave], record=False)
+            sampled.append([t for t, _ in out])
+            del engine
+    finally:
+        widths.restore()
+    check(sampled[0] == sampled[1], "spec: the same seed gave other tokens "
+          "on a fresh engine")
+    print(f"[spec] seeded stochastic runs: same tokens on fresh engines "
+          f"({sum(map(len, sampled[0]))} tokens); phase "
+          f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
 
@@ -1998,12 +2286,13 @@ def record_next_token_rows(engine):
     return rows_of
 
 
-def planes_agree(torch, label, paged, dense, tol=None):
-    """Greedy tokens of one trace on the paged and the dense plane, with the
+def planes_agree(torch, label, paged, dense, tol=None, tag="moe"):
+    """Greedy tokens of one trace on two runs (the paged and the dense
+    plane; the plain and the speculating engine, phase ``spec``), with the
     logits rows behind them ([(tokens, rows)] per request, in trace order).
-    While a request's tokens agree, both planes saw the same context: each
+    While a request's tokens agree, both runs saw the same context: each
     row pair must agree to relative L2 ``tol``.  Where its tokens first
-    differ, the paged plane's logits of the two tokens must be tied within
+    differ, the first run's logits of the two tokens must be tied within
     the two rows' own largest difference (the rule of the decode phase's
     check).  With ``tol=None`` nothing is checked, only reported.  Returns
     the number of requests with equal tokens."""
@@ -2021,10 +2310,10 @@ def planes_agree(torch, label, paged, dense, tol=None):
             a, b = ra[n].float(), rb[n].float()
             gap = (a[ta[n]] - a[tb[n]]).item()
             err = (a - b).abs().max().item()
-            print(f"[moe] {label} request {j}: first different token at {n} "
-                  f"({ta[n]} vs {tb[n]}); paged logit gap {gap:.3e}, the "
-                  f"rows' max difference {err:.3e}; worst relative L2 up to "
-                  f"there {worst:.3e}")
+            print(f"[{tag}] {label} request {j}: first different token at "
+                  f"{n} ({ta[n]} vs {tb[n]}); first run's logit gap "
+                  f"{gap:.3e}, the rows' max difference {err:.3e}; worst "
+                  f"relative L2 up to there {worst:.3e}")
         same += n is None
         if tol is None:
             continue
@@ -2033,8 +2322,8 @@ def planes_agree(torch, label, paged, dense, tol=None):
         check(gap <= err, f"{label} request {j}: the planes' greedy tokens "
               f"differ at {n} by a logit gap of {gap:.3e} > the rows' max "
               f"difference {err:.3e}")
-    print(f"[moe] {label}: {same}/{len(paged)} requests with the same greedy "
-          f"tokens on both planes" + ("" if tol is None else
+    print(f"[{tag}] {label}: {same}/{len(paged)} requests with the same "
+          f"greedy tokens on both runs" + ("" if tol is None else
                                       f" (same-context logits within {tol})"))
     return same
 
@@ -3043,6 +3332,8 @@ def main() -> int:
             torch, rt, cfg, model, params, cpu_params, counters,
             decode_batch, decode_prompt)
         phase_dense(torch, rt, cfg, model, params, counters, paged_tokens)
+        phase_spec(torch, rt, cfg, model, params, counters)
+        print(f"[time] spec done at {time.perf_counter() - t_start:.1f} s")
         del model, params
         torch.cuda.empty_cache()
         launches["paged_decode"] = phase_nalar(

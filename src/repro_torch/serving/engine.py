@@ -35,13 +35,20 @@ ssm and hybrid families, on its three data planes:
     completion and stream-chunk callbacks that ``drain_completions`` fires
     off the step lock, finished requests wait in a bounded list, the pool
     takes the ``KVRegistry``'s hints (``bind_registry``) and the engine
-    ``touch``es a session's residency at admission, warm and finish.
+    ``touch``es a session's residency at admission, warm and finish;
+  * speculative decoding on the paged plane (``draft_model``): a draft
+    (``serving/speculative.DraftEngine``) proposes ``spec_k`` tokens per
+    decoding slot and round, one paged chunk step verifies all ``k+1``
+    positions, the accepted prefix is committed and the rejected tail's
+    reserved pages are released (``truncate_reserved``).  Greedy
+    speculative decoding gives the plain decode's tokens.
 
 The device is ``torch.device("cuda")`` unless the caller names another;
 each step copies only the [B] greedy tokens to the host (the [B,V]
 next-token rows stay on the device unless a stochastic request samples
-from them).  Not ported yet (ROADMAP.md): speculative decoding
-(``draft_model``), the vlm and audio families and request ``extras``.
+from them; a verify step copies the [B,T] greedy tokens instead).  Not
+ported yet (ROADMAP.md): the vlm and audio families and request
+``extras``.
 """
 
 from __future__ import annotations
@@ -63,7 +70,8 @@ from ..models.model import Model
 from .batching import (EngineOverloaded, Request, RequestExpired, WaitQueue,
                        bucket_len)
 from .kv_cache import PagedKVPool, StateCachePool
-from .sampler import SamplingParams, sample
+from .sampler import (SamplingParams, greedy_accept, sample,
+                      speculative_verify)
 
 
 @dataclass
@@ -89,8 +97,8 @@ class EngineMetrics:
     # admissions/steps aborted because the pool could not provide pages
     # (all residents protected or pinned)
     paged_append_failures: int = 0
-    # speculative decoding: rounds, draft tokens proposed and accepted (0
-    # until A9 ports it)
+    # speculative decoding: rounds that ran a draft, draft tokens proposed,
+    # and tokens the verifier accepted
     spec_rounds: int = 0
     spec_proposed: int = 0
     spec_accepted: int = 0
@@ -105,6 +113,8 @@ class EngineMetrics:
 
     @property
     def decode_tokens_per_step(self) -> float:
+        """Acceptance-weighted decode throughput: > 1 means speculation is
+        paying (every accepted draft token rides a step for free)."""
         return (self.tokens_generated / self.decode_steps
                 if self.decode_steps else 0.0)
 
@@ -167,10 +177,11 @@ class InferenceEngine:
                  max_queue: int = 0, queue_watermark: float = 0.75,
                  finished_cap: int = 8192, prefix_sharing: bool = True,
                  paged_decode: bool = True,
-                 draft_model: Optional[Model] = None, tier: str = "",
+                 draft_model: Optional[Model] = None,
+                 draft_params: Optional[dict] = None,
+                 spec_k: int = 3, spec_min_accept: float = 0.25,
+                 spec_warmup: int = 24, tier: str = "",
                  device: DeviceLike = None) -> None:
-        if draft_model is not None:
-            raise _not_ported("speculative decoding (draft_model)", "A9")
         self.model = model
         self.cfg: ModelConfig = model.cfg
         if self.cfg.family not in _SERVED_FAMILIES:
@@ -269,6 +280,30 @@ class InferenceEngine:
         # far (None = unknown provenance, the session stays opaque).  They
         # key the pool's prefix index.
         self._slot_tokens: Dict[int, Optional[List[int]]] = {}
+
+        # speculative decoding (paged plane only): a small-tier draft
+        # proposes spec_k tokens per decode round; the same paged chunk
+        # step verifies all k+1 positions at once
+        self.spec_k = int(spec_k)
+        self.spec_min_accept = float(spec_min_accept)
+        self.spec_warmup = int(spec_warmup)
+        self._spec = None
+        # pool session -> [proposed, accepted]: the acceptance ledger that
+        # disables speculation per session
+        self._spec_ledger: Dict[str, List[int]] = {}
+        self._spec_off: set = set()
+        # slots whose draft stream mirrors the target's consumed tokens
+        # (unknown provenance = no speculation for that slot)
+        self._spec_ok: set = set()
+        if draft_model is not None and self._paged and self.spec_k > 0:
+            if draft_model.cfg.vocab_size != self.cfg.vocab_size:
+                raise ValueError(
+                    "draft/target vocab mismatch: "
+                    f"{draft_model.cfg.vocab_size} vs {self.cfg.vocab_size}")
+            from .speculative import DraftEngine
+            self._spec = DraftEngine(draft_model, draft_params,
+                                     max_batch=max_batch, max_seq=max_seq,
+                                     device=self.device)
 
     # ----------------------------------------------------------- submission
     def submit(self, req: Request) -> str:
@@ -563,6 +598,14 @@ class InferenceEngine:
                 self._pending_prompt[slot] = [int(t) for t in req.prompt]
                 self._slot_tokens[slot] = self._resumed_slot_tokens(
                     req, tokens)
+                if self._spec is not None:
+                    # the draft can only shadow this slot if the resumed
+                    # positions have exact token provenance to replay
+                    self._spec.reset(slot)
+                    ids = self._slot_tokens[slot]
+                    if ids is not None and len(ids) == tokens:
+                        self._spec.observe(slot, ids)
+                        self._spec_ok.add(slot)
             elif self.prefill_chunk > 0:
                 # chunked prefill: blank row now, prompt consumed by step()
                 # in prefill_chunk-sized pieces piggybacked on decode
@@ -580,6 +623,11 @@ class InferenceEngine:
                 self._pending_prompt[slot] = [int(t) for t in req.prompt]
                 self._slot_tokens[slot] = [] if self._prefix_share_ok \
                     else None
+                if self._spec is not None:
+                    # chunked prefill feeds the whole prompt through the
+                    # step loop, which mirrors each chunk into the draft
+                    self._spec.reset(slot)
+                    self._spec_ok.add(slot)
                 self.metrics.prefills += 1
                 self.metrics.prefill_tokens += len(req.prompt)
             elif not self._admit_prefilled(slot, req, now):
@@ -626,6 +674,13 @@ class InferenceEngine:
                 return False
             self.pool.protect(sid)
             self._slot_sid[slot] = sid
+            if self._spec is not None:
+                # the pages hold the left-padded bucket, whose tokens are
+                # known whether or not they were indexed
+                self._spec.reset(slot)
+                self._spec.observe(slot, [0] * (bucket - S)
+                                   + [int(t) for t in req.prompt])
+                self._spec_ok.add(slot)
         else:
             set_slot(self.cache, slot, row_cache)
         self._pos[slot] = bucket
@@ -840,9 +895,9 @@ class InferenceEngine:
 
     def _paged_forward(self, toks: np.ndarray, valid: np.ndarray,
                        pos: np.ndarray, pt: np.ndarray):
-        """One paged chunk forward on the device.  Returns the [B,V]
-        next-token rows (each sequence's last valid row) and their greedy
-        argmax, both left on the device."""
+        """One paged chunk forward on the device.  Returns the [B,T,V]
+        logits and the [B,V] next-token rows (each sequence's last valid
+        row), both left on the device."""
         dev = self.device
         valid_t = torch.from_numpy(valid).to(dev)
         logits, _cache, _kp, _vp = self.model.decode_chunk_paged(
@@ -851,22 +906,30 @@ class InferenceEngine:
             torch.from_numpy(pt).to(dev), max_seq=self.max_seq)
         last = torch.clamp(valid_t.long() - 1, min=0)
         rows = logits[torch.arange(logits.shape[0], device=dev), last]
-        return rows, torch.argmax(rows, dim=-1)
+        return logits, rows
 
-    def _plan_chunk(self, active: List[int], budget: int
+    def _plan_chunk(self, active: List[int], budget: int,
+                    drafts: Optional[Dict[int, List[int]]] = None
                     ) -> Tuple[np.ndarray, np.ndarray]:
         """The chunk every plane's step feeds: prefilling slots consume up
-        to ``budget`` prompt tokens, decoding slots advance one, idle slots
-        none.  The chunk width is sized to the actual need and rounded up
-        to a power of two (so a short prompt never pays a full-width chunk
-        step).  Returns (tokens [B,T], valid lengths [B])."""
+        to ``budget`` prompt tokens, decoding slots advance one (a slot
+        with ``drafts`` feeds its last token and its draft tokens), idle
+        slots none.  The chunk width is sized to the actual need and
+        rounded up to a power of two (so a short prompt never pays a
+        full-width chunk step).  Prompt chunks of a slot whose draft
+        shadows it are mirrored into the draft's stream.  Returns (tokens
+        [B,T], valid lengths [B])."""
         pending = self._pending_prompt
+        drafts = drafts or {}
         need = 1
         for i in active:
             q = pending.get(i)
             if q:
                 need = max(need, min(len(q), budget))
-        T = min(1 << (need - 1).bit_length(), budget)
+            elif i in drafts:
+                need = max(need, 1 + len(drafts[i]))
+        cap = max([budget] + [1 + len(d) for d in drafts.values()])
+        T = min(1 << (need - 1).bit_length(), cap)
         toks = np.zeros((self.max_batch, T), np.int64)
         valid = np.zeros((self.max_batch,), np.int32)
         for i in active:
@@ -878,10 +941,14 @@ class InferenceEngine:
                 valid[i] = n
                 if not q:
                     pending.pop(i, None)
+                if i in self._spec_ok:
+                    self._spec.observe(i, toks[i, :n].tolist())
             else:
                 req = self.slots[i]
-                toks[i, 0] = req.generated[-1] if req.generated else 0
-                valid[i] = 1
+                seq = [req.generated[-1] if req.generated else 0]
+                seq += drafts.get(i, [])
+                toks[i, :len(seq)] = seq
+                valid[i] = len(seq)
         return toks, valid
 
     def _sample_ready(self, active: List[int], valid: np.ndarray,
@@ -911,8 +978,14 @@ class InferenceEngine:
         advancing session's pages, the model writes the new K/V into them
         by page table, and ``commit_append`` publishes the new tokens
         (re-keying the prefix index).  A slot whose reservation fails is
-        aborted explicitly — counted, finished with what it has."""
-        toks, valid = self._plan_chunk(active, budget)
+        aborted explicitly — counted, finished with what it has.  With a
+        draft, decoding slots first get their proposals; such a slot feeds
+        them in the same chunk and its outcome is decided (and committed)
+        by :meth:`_verify_slot`."""
+        plan = (self._plan_speculation(active)
+                if self._spec is not None else {})
+        pos0 = self._pos.copy()
+        toks, valid = self._plan_chunk(active, budget, plan)
         now = time.monotonic()
         aborted: List[int] = []
         for i in active:
@@ -925,18 +998,18 @@ class InferenceEngine:
                 aborted.append(i)
         for i in active:
             ids = self._slot_tokens.get(i)
-            if ids is not None and valid[i]:
+            if ids is not None and valid[i] and i not in plan:
                 ids.extend(int(t) for t in toks[i, :valid[i]])
         pt = np.full((self.max_batch, self._max_pages), -1, np.int32)
         for i in active:
             if valid[i]:
                 pt[i] = self.pool.page_table(self._slot_sid[i],
                                              self._max_pages)
-        rows, greedy = self._paged_forward(toks, valid, self._pos, pt)
+        logits, rows = self._paged_forward(toks, valid, self._pos, pt)
         self._pos += valid
         self.metrics.decode_steps += 1
         for i in active:
-            if valid[i]:
+            if valid[i] and i not in plan:
                 n = int(valid[i])
                 ids = (toks[i, :n].tolist()
                        if self._slot_tokens.get(i) is not None else None)
@@ -944,7 +1017,124 @@ class InferenceEngine:
                                         now=now)
         for i in aborted:
             self._finish_slot(i, now)
-        return self._sample_ready(active, valid, rows, greedy)
+        if not plan:
+            return self._sample_ready(active, valid, rows,
+                                      torch.argmax(rows, dim=-1))
+        # one host copy of every position's argmax: the plain slots' tokens
+        # and the verifier's greedy walk
+        greedy_all = torch.argmax(logits, dim=-1).cpu().numpy()     # [B,T]
+        greedy = greedy_all[np.arange(self.max_batch),
+                            np.maximum(valid - 1, 0)]
+        sampled = self._sample_ready([i for i in active if i not in plan],
+                                     valid, rows, torch.from_numpy(greedy))
+        for i in active:
+            if i in plan and valid[i]:
+                self._verify_slot(self.slots[i], i, plan[i], int(toks[i, 0]),
+                                  int(pos0[i]), logits, greedy_all, now)
+                sampled.add(i)
+        return sampled
+
+    def _plan_speculation(self, active: List[int]) -> Dict[int, List[int]]:
+        """Draft proposals for this round: every decoding slot whose draft
+        stream shadows it proposes up to ``spec_k`` tokens (batched across
+        slots in the draft).  Returns slot -> draft tokens."""
+        want: Dict[int, int] = {}
+        for i in active:
+            if self._pending_prompt.get(i) or i not in self._spec_ok:
+                continue
+            req = self.slots[i]
+            if req is None or not req.generated:
+                continue
+            k = self._spec_budget(i, req, int(self._pos[i]))
+            if k > 0:
+                self._spec.observe(i, [int(req.generated[-1])])
+                want[i] = k
+        return self._spec.propose(want) if want else {}
+
+    def _spec_budget(self, slot: int, req: Request, pos: int) -> int:
+        """Draft tokens worth proposing for this slot this round (0 = run a
+        plain decode step): bounded by ``spec_k``, by the request's
+        remaining new-token budget (a round emits at most k+1), by the
+        slot's remaining positions, and by the per-session off-switch."""
+        sid = self._slot_sid.get(slot)
+        if sid is None or sid in self._spec_off:
+            return 0
+        remaining_new = req.sampling.max_new_tokens - len(req.generated)
+        n_max = self.max_seq - 1 - pos       # emission budget to the cap
+        return max(0, min(self.spec_k, remaining_new - 1, n_max - 1))
+
+    def _round_seed(self, req: Request) -> int:
+        """One seed per verification round, drawn from the request's own
+        generator (the verifier derives each position's draws from it)."""
+        gen = self._req_gen.get(req.request_id)
+        if gen is None:
+            gen = self._req_gen[req.request_id] = self._request_generator(req)
+        return int(torch.randint(0, 1 << 62, (1,), generator=gen,
+                                 device=gen.device)[0])
+
+    def _verify_slot(self, req: Request, slot: int, drafts: List[int],
+                     t_prev: int, pos0: int, logits: torch.Tensor,
+                     greedy_all: np.ndarray, now: float) -> None:
+        """Decide one verified draft chunk for ``slot``.
+
+        The step already wrote K/V for all ``k+1`` fed positions into the
+        slot's reserved pages; this decides how many survive.  Greedy
+        accepts the longest prefix where the argmax equals the draft (the
+        plain decode's tokens, because a chunk's rows equal the one-token
+        steps'); stochastic runs the accept/resample rule on the slot's
+        k+1 logits rows with a seed from the request's generator.  Commits
+        exactly the consumed positions, releases the rejected tail's
+        reserved pages, rewinds the slot's position and truncates the
+        draft's stream to the surviving prefix."""
+        k = len(drafts)
+        sp = req.sampling
+        if sp.temperature <= 0.0:
+            candidates, m = greedy_accept(greedy_all[slot], drafts)
+        else:
+            candidates, m = speculative_verify(
+                logits[slot, :k + 1].float().cpu().numpy(), drafts, sp,
+                self._round_seed(req))
+        # trim emissions at the request's stop conditions (a mid-chunk eos
+        # or budget hit ends the round early, as the one-token path would)
+        emitted: List[int] = []
+        for t in candidates:
+            emitted.append(int(t))
+            if (len(req.generated) + len(emitted) >= sp.max_new_tokens
+                    or t == sp.eos_token
+                    or pos0 + len(emitted) >= self.max_seq - 1):
+                break
+        r = len(emitted)
+        sid = self._slot_sid[slot]
+        consumed = [t_prev] + emitted[:r - 1]
+        ids = self._slot_tokens.get(slot)
+        if ids is not None:
+            ids.extend(consumed)
+        self.pool.commit_append(
+            sid, r, token_ids=(consumed if ids is not None else None),
+            now=now)
+        self.pool.truncate_reserved(sid)
+        # the step advanced the position by the full k+1 feed; only r
+        # positions exist
+        self._pos[slot] = pos0 + r
+        self._spec.rollback(slot, pos0 + r)
+        req.generated.extend(emitted)
+        self.metrics.tokens_generated += r
+        if req.first_token_at < 0:
+            req.first_token_at = time.monotonic()
+        self.metrics.spec_rounds += 1
+        self.metrics.spec_proposed += k
+        self.metrics.spec_accepted += m
+        led = self._spec_ledger.setdefault(sid, [0, 0])
+        led[0] += k
+        led[1] += m
+        if (led[0] >= self.spec_warmup
+                and led[1] < self.spec_min_accept * led[0]):
+            # observed acceptance makes speculation a loss for this
+            # session: every future round decodes plain
+            self._spec_off.add(sid)
+        if len(self._spec_ledger) > 8192:
+            self._spec_ledger.clear()
+            self._spec_off.clear()
 
     def _step_fused(self, active: List[int], budget: int) -> set:
         """One fused chunk forward over the slot cache
@@ -1038,6 +1228,9 @@ class InferenceEngine:
         self._active_mask[slot] = False
         self._pending_prompt.pop(slot, None)
         self._slot_tokens.pop(slot, None)
+        if self._spec is not None:
+            self._spec.reset(slot)
+            self._spec_ok.discard(slot)
         sid = self._slot_sid.pop(slot, None)
         if sid is not None:
             self.pool.unprotect(sid)
@@ -1209,7 +1402,7 @@ class InferenceEngine:
                 "paged_kernel": self._paged and self.device.type == "cuda",
                 "tier": self.tier,
                 "device": str(self.device),
-                "speculative": False,
+                "speculative": self._spec is not None,
                 "spec_rounds": m.spec_rounds,
                 "spec_proposed": m.spec_proposed,
                 "spec_accepted": m.spec_accepted,

@@ -309,6 +309,31 @@ class PagedKVPool:
                 if block:
                     self._index_page(parent, block, page)
 
+    def truncate_reserved(self, session_id: str) -> int:
+        """Release reserved pages past the committed token count.
+
+        Speculative decoding reserves ``begin_append(sid, k+1)`` capacity
+        but may commit fewer positions (a rejected tail): the trailing
+        pages hold K/V of draft tokens that never became part of the
+        sequence.  ``begin_append`` made every page of the write range
+        exclusively owned and unindexed, so dropping them cannot disturb a
+        sharer or the prefix index; the partial tail page that still holds
+        committed tokens is kept (what lies past ``sp.tokens`` in it is
+        masked by position everywhere).  Returns the number of pages
+        freed."""
+        with self._lock:
+            sp = self._sessions.get(session_id)
+            if sp is None:
+                return 0
+            keep = self.pages_needed(sp.tokens)
+            freed = len(sp.pages) - keep
+            if freed <= 0:
+                return 0
+            for page in sp.pages[keep:]:
+                self._decref(page)
+            del sp.pages[keep:]
+            return freed
+
     # --------------------------------------------------------- prefix index
     def _unindex(self, page: int) -> None:
         key = self._page_key.pop(page, None)

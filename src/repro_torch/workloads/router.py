@@ -163,18 +163,16 @@ def build_pool_runtime(*, replicas: int = 3, arch: str = "qwen3_0_6b",
     label to the smoke arch its replicas load (labels absent from the map
     fall back to ``arch``).  Pair with a ``TierRoutePolicy`` and
     ``model_tier`` work hints (see :func:`tiered_driver`).  A tier arch the
-    port has not reached raises, naming ROADMAP.md A11; ``draft_layers >
-    0`` (a layer-truncated self-draft for speculative decoding) raises,
-    naming A9, and so ``spec_k`` is unused until then.
+    port has not reached raises, naming ROADMAP.md A11.  ``draft_layers >
+    0`` arms every replica whose model has more layers than that with a
+    layer-truncated self-draft (speculative decoding, ``spec_k``
+    proposals per round).
     """
     from ..configs import ARCH_IDS, canonical
     from ..serving import InferenceEngine, SamplingParams
     from ..serving.pool import register_engine_pool
+    from ..serving.speculative import truncated_draft
 
-    if draft_layers > 0:
-        raise NotImplementedError(
-            "speculative decoding (draft_layers) is not ported yet "
-            "(ROADMAP.md A9)")
     for a in (tier_archs or {}).values():
         if canonical(a) not in ARCH_IDS:
             raise NotImplementedError(
@@ -199,12 +197,16 @@ def build_pool_runtime(*, replicas: int = 3, arch: str = "qwen3_0_6b",
             mb = max(1, max_batch // 2)
         tier = tiers[i] if tiers else ""
         model, params = _built((tier_archs or {}).get(tier, arch))
+        kw = {}
+        if 0 < draft_layers < model.cfg.n_layers:
+            dm, dp = truncated_draft(model, params, draft_layers)
+            kw = dict(draft_model=dm, draft_params=dp, spec_k=spec_k)
         engines.append(InferenceEngine(model, params, max_batch=mb,
                                        max_seq=max_seq,
                                        prefill_chunk=prefill_chunk,
                                        max_queue=max_queue,
                                        prefix_sharing=prefix_sharing,
-                                       tier=tier, device=device))
+                                       tier=tier, device=device, **kw))
     register_engine_pool(
         rt, "llm", engines,
         sampling=SamplingParams(max_new_tokens=max_new_tokens),

@@ -215,8 +215,13 @@ def test_port_selftest_serves_over_tcp_on_the_cpu(capsys):
 
 def test_port_pool_builder_refuses_what_is_not_ported():
     from repro_torch.workloads.router import build_pool_runtime
-    with pytest.raises(NotImplementedError, match="A9"):
-        build_pool_runtime(replicas=1, draft_layers=1, device="cpu")
+    # speculative decoding is ported: draft_layers arms the replicas
+    rt = build_pool_runtime(replicas=1, draft_layers=1, device="cpu")
+    try:
+        engine = next(iter(rt.engine_backends["llm"].bridges.values())).engine
+        assert engine.telemetry()["speculative"] is True
+    finally:
+        rt.shutdown()
     with pytest.raises(NotImplementedError, match="A11"):
         build_pool_runtime(replicas=2, tiers=["small", "large"],
                            tier_archs={"large": "qwen3_1_7b"}, device="cpu")
