@@ -105,6 +105,31 @@ the run with a non-zero exit and no result line:
              2300 tokens, 32 decode_steps) in bf16 against float32 on the
              card; and the fused, masked and monolithic engines' float32
              tokens on the cut.
+11. variants — the five other architectures at full width (random
+             weights from seed 0, bf16; recurrentgemma freed first), one
+             after the other, each freed before the next: qwen3-1.7b,
+             stablelm-1.6b (layer norm, a quarter of head dim 64 rotated),
+             starcoder2-15b (layer norm, gelu, 48 query heads over 4 kv
+             heads, window 4096), phi-3-vision-4.2b (576 image tokens
+             before the text, head dim 96) and whisper-medium (encoder-
+             decoder, 1500 frames).  First the shapes they give the
+             kernels: B1 at head dims 64 and 96 with n_rep 1 and at n_rep
+             12, B2 at head dims 96 (576 + 256 positions) and 64, B4 at
+             head dim 64 with n_rep 1 and at n_rep 12, each held against
+             its plain version (and bitwise across batch, chunk or length)
+             and timed with its bound and the library call.  Then for each
+             arch a trace of 8 requests of 16 tokens (two sessions with a
+             second turn, prompts of 64..256; phi-3: half of them with an
+             image; whisper: every one with frames) on the paged plane,
+             ``max_seq`` 1024, pages of 64, ``prefill_chunk`` 8 (whisper
+             also at ``prefill_chunk=0`` and on the dense plane, its second
+             turns refused and counted in ``resume_unsupported``), B1 held
+             to a launch a layer per paged step and B2 per prefill; then
+             next-token logits of two prompts through prefill, a paged step
+             and ``decode_step`` (B4, a launch a layer): card bf16 against
+             card float32 at full depth (starcoder2: its first 8 layers)
+             within 5e-2 relative L2, argmax equal unless tied, and card
+             float32 against the CPU on the first 8 layers within 1e-3.
 
 The last lines are the kernel table as JSON, the card's name and power
 limit (``nvidia-smi``), and ``{"ok": true, "device": {...}}``.
@@ -1426,20 +1451,21 @@ def to_cpu(tree):
 
 
 def compare_logits(torch, name, card, ref, tol=LOGITS_REL_L2_TOL,
-                   card_type="bf16"):
-    """Card logits [V] against CPU float32 ones: finite, relative L2 error
-    within ``tol``.  Returns (same argmax, the CPU's logit gap between its
+                   card_type="bf16", ref_type="cpu f32"):
+    """Card logits [V] against reference ones (CPU float32 unless
+    ``ref_type`` names another run): finite, relative L2 error within
+    ``tol``.  Returns (same argmax, the reference's logit gap between its
     argmax and the card's, the largest absolute difference)."""
     rel = ((card - ref).norm() / ref.norm()).item()
     err = (card - ref).abs().max().item()
     a, b = int(card.argmax()), int(ref.argmax())
     gap = (ref[b] - ref[a]).item()
-    print(f"[check] {name} logits card {card_type} vs cpu f32: rel_l2="
+    print(f"[check] {name} logits card {card_type} vs {ref_type}: rel_l2="
           f"{rel:.3e} (tol {tol}) max_abs={err:.3e} "
           f"|ref|max={ref.abs().max().item():.3f} argmax {a} vs {b} "
-          f"(cpu gap {gap:.3e})")
+          f"({ref_type.split()[0]} gap {gap:.3e})")
     check(bool(torch.isfinite(card).all()) and rel <= tol,
-          f"{name} logits disagree with the CPU float32 run")
+          f"{name} logits disagree with the {ref_type} run")
     return a == b, gap, err
 
 
@@ -3278,6 +3304,411 @@ def phase_hybrid(torch, rt, counters, timer, scan_ops, scan_ref, flash_ops,
     return row, launches["rglru_scan"]
 
 
+# ---------------------------------------------------------- phase variants
+# the five architectures this phase serves, in order, each at full width
+VARIANTS = ("qwen3-1.7b", "stablelm-1.6b", "starcoder2-15b",
+            "phi-3-vision-4.2b", "whisper-medium")
+# depth of the card's bf16-vs-float32 comparison where float32 does not
+# fit beside bf16 (starcoder2-15b: 32 GB bf16, 64 GB float32): its first
+# layers; the others compare at full depth
+VARIANT_F32_LAYERS = {"starcoder2-15b": 8}
+# depth of the float32 card-vs-CPU comparison: the CPU's float32 runs at
+# full depth (phi-3's 576-token image prefixes, whisper's 1500-frame
+# encoder passes) cost ~100 s of the run's 1200 s limit
+VARIANT_CPU_LAYERS = 8
+
+
+def variant_paged_rows(torch, timer, paged_ops, paged_ref, tag, cases):
+    """The paged chunk kernel (B1) at one arch's serving shape each: B=8,
+    T=8 (a chunked-prefill step), pages of 64, tables of 16 entries from
+    the engine's default pool of 272 pages, contexts 32..544.  Each case
+    (label, seed, H, Hkv, D) is held against the plain version in bf16 and
+    in float32, its rows bitwise against B=1 and T=1 launches in both, and
+    timed (bf16) beside the plain version and gather + SDPA.  Returns the
+    largest bf16 difference and the timings by label."""
+    B, T, P, maxp, n_pages = 8, 8, 64, 16, 272
+    err, timings = 0.0, {}
+    for label, seed, H, Hkv, D in cases:
+        q, kp, vp, pt, pos = paged_inputs(torch, seed, B, T, H, Hkv, D, P,
+                                          n_pages, maxp, (32, 544))
+        kw = dict(scale=D ** -0.5, n_rep=H // Hkv)
+        for dt, tol in ((torch.bfloat16, KERNEL_TOL),
+                        (torch.float32, dict(rtol=1e-5, atol=1e-5))):
+            qd, kd, vd = (x.to(dt) for x in (q, kp, vp))
+            got = paged_ops.paged_decode_chunk(qd, kd, vd, pt, pos, **kw)
+            want = paged_ref.paged_decode_chunk_ref(qd, kd, vd, pt, pos, **kw)
+            same_b = all(torch.equal(paged_ops.paged_decode_chunk(
+                qd[b:b + 1], kd, vd, pt[b:b + 1].contiguous(), pos[b:b + 1],
+                **kw), got[b:b + 1]) for b in range(B))
+            same_t = all(torch.equal(paged_ops.paged_decode_chunk(
+                qd[:, t:t + 1].contiguous(), kd, vd, pt, pos + t, **kw),
+                got[:, t:t + 1]) for t in range(T))
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            ok = torch.allclose(got.float(), want.float(), **tol)
+            name = "bf16" if dt == torch.bfloat16 else "f32"
+            print(f"[{tag}] paged_decode_chunk {name} ({label}) B={B} T={T} "
+                  f"H={H} Hkv={Hkv} D={D} R={T * H // Hkv} "
+                  f"max_abs_err={e:.3e} tol={tol} ok={ok}; rows bitwise "
+                  f"equal to B=1 launches: {same_b}, to T=1 launches at "
+                  f"pos + t: {same_t}")
+            check(ok and same_b and same_t
+                  and bool(torch.isfinite(got).all()),
+                  f"paged_decode_chunk {name} ({label}) disagrees with its "
+                  f"plain version or its rows depend on the batch or chunk")
+            if dt == torch.bfloat16:
+                err = max(err, e)
+        n_bytes, flops = paged_cost(pt, pos, T, H, Hkv, D, P)
+        bound, by = bound_ms(n_bytes, flops)
+        library = gather_sdpa(torch, q, kp, vp, pt, pos, kw["scale"])
+        t = {"ms": timer.ms(lambda: paged_ops.paged_decode_chunk(
+                 q, kp, vp, pt, pos, **kw)),
+             "plain_ms": timer.ms(lambda: paged_ref.paged_decode_chunk_ref(
+                 q, kp, vp, pt, pos, **kw)),
+             "library_ms": timer.ms(library),
+             "bound_ms": bound, "bound_by": by}
+        timings[label] = t
+        print(f"[{tag}] paged_decode_chunk timed ({label}) B={B} T={T} H={H} "
+              f"Hkv={Hkv} D={D} P={P}: ms={t['ms']:.4f} plain_ms="
+              f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f} "
+              f"(gather + SDPA) bound_ms={bound:.5f} ({by}; {n_bytes} B, "
+              f"{flops} flop) [{ptxas_tag(*PAGED_SYMBOLS)}]")
+    return err, timings
+
+
+def variant_kernel_rows(torch, timer, paged_ops, paged_ref, flash_ops,
+                        flash_ref):
+    """The shapes the five architectures give B1, B2 and B4 that no other
+    phase runs: head dims 64 and 96, full MHA (n_rep 1) and starcoder2's
+    group of 12 (48 query heads over 4 kv heads).  Each is held against
+    its plain version (and bitwise across batch, chunk or sequence length)
+    and timed in bf16 with its bound and the library call."""
+    tag = "variants"
+    variant_paged_rows(torch, timer, paged_ops, paged_ref, tag, [
+        ("stablelm-1.6b", 201, 32, 32, 64),
+        ("whisper-medium", 202, 16, 16, 64),
+        ("phi-3-vision-4.2b", 203, 32, 32, 96),
+        ("starcoder2-15b", 204, 48, 4, 128)])
+    # monolithic prefills: phi-3's 576 image tokens before a text bucket of
+    # 256; stablelm's and whisper's decoder over a bucket of 256; the card
+    # tests' S = 576 + 128 at D=64
+    flash_rows(torch, timer, flash_ops, flash_ref, tag, 32, 96, 205,
+               [(576 + 256, None, True), (576 + 128, None, False)])
+    flash_rows(torch, timer, flash_ops, flash_ref, tag, 32, 64, 206,
+               [(256, None, True), (576 + 128, None, False)])
+    flash_rows(torch, timer, flash_ops, flash_ref, tag, 16, 64, 207,
+               [(256, None, True)])
+    # decode_step over a 1024-slot cache at the serve trace's contexts
+    pos = np.random.default_rng(208).integers(64, 288, 8)
+    ring_rows(torch, timer, paged_ops, paged_ref, tag, 32, 32, 64, 209,
+              [("stablelm-1.6b", 1024, None, pos)])
+    ring_rows(torch, timer, paged_ops, paged_ref, tag, 16, 16, 64, 210,
+              [("whisper-medium", 1024, None, pos)])
+    ring_rows(torch, timer, paged_ops, paged_ref, tag, 48, 4, 128, 211,
+              [("starcoder2-15b", 1024, None, pos),
+               (None, 4096, 4096, np.array([100, 4095, 4096, 5000]))])
+
+
+def variant_extras(cfg, rng):
+    """One request's stubbed frontend input, at the scale of a token
+    embedding (std d_model^-0.5): phi-3's projected image patches
+    [576, 3072] or whisper's frame embeddings [1500, 1024]."""
+    if cfg.family == "vlm":
+        shape = (cfg.n_image_tokens, cfg.d_model)
+        key = "image_embeds"
+    else:
+        shape = (cfg.encoder_seq, cfg.d_model)
+        key = "frames"
+    return {key: (rng.standard_normal(shape)
+                  * cfg.d_model ** -0.5).astype(np.float32)}
+
+
+def variant_trace(cfg):
+    """Two waves, 8 requests: two sessions with a second turn and four
+    single-turn users, prompts of 64..256 tokens (second turns 32..64).
+    phi-3: the sessions' first turns and two users carry an image (half
+    the requests); whisper: every request carries frames.  Returns
+    [[(session, prompt, extras)]]."""
+    rng = np.random.default_rng(0)
+
+    def toks(lo, hi):
+        return rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1)))
+
+    def ex(with_image):
+        if cfg.family == "audio" or (cfg.family == "vlm" and with_image):
+            return variant_extras(cfg, rng)
+        return {}
+
+    wave1 = [(f"sess{i}", toks(64, 256), ex(True)) for i in range(2)]
+    wave1 += [(f"user{i}", toks(64, 256), ex(i < 2)) for i in range(4)]
+    wave2 = [(f"sess{i}", toks(32, 64), ex(False)) for i in range(2)]
+    return [wave1, wave2]
+
+
+def variant_serve(torch, rt, model, params, counters, tally, tag,
+                  prefill_chunk=8, paged=True):
+    """The variant trace on one engine (greedy, 16 new tokens each), the
+    launch counters set to 0 just before and read just after.  Holds every
+    request to its 16 tokens and the pool's invariants, B1 to L launches
+    per paged step and B2 to L per monolithic prefill.  Returns the
+    requests and the launches."""
+    from repro_torch.serving import Request, SamplingParams
+
+    cfg, L = model.cfg, model.cfg.n_layers
+    engine = rt.InferenceEngine(model, params, max_batch=8, max_seq=1024,
+                                page_size=64, prefill_chunk=prefill_chunk,
+                                paged_decode=paged)
+    sampling = SamplingParams(max_new_tokens=16)
+    tally.reset()
+    for c in counters.values():
+        c.launches = 0
+    reqs, step_ms = [], []
+    t0 = time.perf_counter()
+    for wave in variant_trace(cfg):
+        for sid, prompt, ex in wave:
+            req = Request.make(prompt, session_id=sid, sampling=sampling,
+                               **ex)
+            engine.submit(req)
+            reqs.append(req)
+        while True:
+            t = time.perf_counter()
+            n = engine.step()
+            if n == 0 and len(engine.queue) == 0:
+                break
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    calls = dict(tally.calls)
+    m = engine.metrics
+    where = (f"{tag}, {'paged' if paged else 'dense'} plane, "
+             f"prefill_chunk={prefill_chunk}")
+    check(all(r.finished and len(r.generated) == 16 for r in reqs),
+          f"{where}: not every request finished with 16 tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          f"{where}: a token is outside the vocabulary")
+    want_path = "paged" if paged else "fused"
+    check(all(r.decode_path == want_path for r in reqs),
+          f"{where}: a request took another decode path than {want_path}")
+    engine.pool.check_invariants()
+    want_b1 = L * calls["decode_chunk_paged"] if paged else 0
+    check(launches["paged_decode_chunk"] == want_b1
+          and (want_b1 > 0) == paged,
+          f"{where}: paged_decode_chunk launched "
+          f"{launches['paged_decode_chunk']} times (want {want_b1})")
+    check(launches["flash_attention_bhsd"] == L * calls["prefill"],
+          f"{where}: flash_attention_bhsd launched "
+          f"{launches['flash_attention_bhsd']} times in {calls['prefill']} "
+          f"prefills (want {L} each)")
+    images = sum("image_embeds" in r.extras for r in reqs)
+    if cfg.family == "vlm" and prefill_chunk:
+        # image requests take the monolithic prefill (B2 over 576 + bucket)
+        check(calls["prefill"] == images == 4,
+              f"{where}: {calls['prefill']} prefills for {images} images")
+    if cfg.family == "audio":
+        check(m.resume_unsupported == 2 and m.prefix_hits == 0,
+              f"{where}: audio second turns were not refused and counted "
+              f"({m.resume_unsupported} refused, {m.prefix_hits} resumed)")
+    elif paged or cfg.family != "vlm":
+        check(m.prefix_hits >= 2, f"{where}: the second turns did not "
+              f"resume ({m.prefix_hits} prefix hits)")
+    gen = m.tokens_generated
+    print(f"[{tag}] {where}: {len(reqs)} requests ({images} with images), "
+          f"{gen} tokens in {wall:.2f} s: {gen / wall:.1f} generated tok/s, "
+          f"{(m.prefill_tokens + gen) / wall:.1f} processed tok/s; "
+          f"{m.decode_steps} steps, step ms p50 "
+          f"{np.percentile(step_ms, 50):.2f} p99 "
+          f"{np.percentile(step_ms, 99):.2f}; prefix_hits={m.prefix_hits} "
+          f"shared_prefix_hits={m.shared_prefix_hits} resume_unsupported="
+          f"{m.resume_unsupported}; forwards {calls}; launches "
+          f"paged_decode_chunk={launches['paged_decode_chunk']} "
+          f"flash_attention_bhsd={launches['flash_attention_bhsd']} "
+          f"decode_ring={launches['decode_ring']}")
+    del engine
+    torch.cuda.empty_cache()
+    return reqs, launches
+
+
+def variant_cut(cfg, params, n):
+    """The first ``n`` layers (decoder and encoder alike) of a model: its
+    config and its parameters (views of the stacked layers; the embedding,
+    the norms and the encoder's position table shared)."""
+    def take(tree):
+        return {k: take(v) if isinstance(v, dict) else v[:n]
+                for k, v in tree.items()}
+
+    if cfg.family == "audio":
+        return (cfg.replace(n_layers=n, n_encoder_layers=n),
+                dict(params, enc_layers=take(params["enc_layers"]),
+                     dec_layers=take(params["dec_layers"])))
+    return cfg.replace(n_layers=n), dict(params, layers=take(params["layers"]))
+
+
+def variant_logits(torch, rt, mdl, prm, dev, prompt, ex, counters):
+    """Next-token logits [V] (float32, on the host) of ``prompt`` (with its
+    extras) through the monolithic prefill, one paged chunk step over a
+    fresh pool (text only for the VLM; the audio memory from
+    ``encode_cross``) and one ``decode_step`` after the prefill; and the
+    launches of the prefill and of the ``decode_step`` alone."""
+    n = len(prompt)
+    toks = torch.from_numpy(prompt[None]).to(dev)
+    batch = {"tokens": toks}
+    batch.update({k: torch.from_numpy(v[None]).to(dev)
+                  for k, v in ex.items()})
+    S = n + (mdl.cfg.n_image_tokens if "image_embeds" in ex else 0)
+    for c in counters.values():
+        c.launches = 0
+    logits, cache = mdl.prefill(prm, batch, pad_cache_to=S + 8)
+    launches = {"prefill": {k: c.launches for k, c in counters.items()}}
+    slim = {"pos": torch.zeros(1, dtype=torch.int32, device=dev)}
+    if "frames" in ex:
+        slim["xk"], slim["xv"] = mdl.encode_cross(prm, batch["frames"])
+    pool = rt.PagedKVPool(mdl.cfg, n_pages=2, page_size=64, device=dev)
+    pt = torch.tensor([[0, -1]], dtype=torch.int32, device=dev)
+    step, _, _, _ = mdl.decode_chunk_paged(
+        prm, toks, torch.tensor([n], dtype=torch.int32, device=dev), slim,
+        pool.k, pool.v, pt, max_seq=1024)
+    for c in counters.values():
+        c.launches = 0
+    one, _ = mdl.decode_step(prm, toks[:, 0], cache)
+    launches["decode_step"] = {k: c.launches for k, c in counters.items()}
+    return ([x.float().cpu() for x in (logits[0], step[0, -1], one[0])],
+            launches)
+
+
+def variant_logits_check(torch, rt, cfg, model, params, counters, tag):
+    """Next-token logits of two prompts (23 and 61 tokens, each with its
+    own extras) through prefill, a paged step and ``decode_step``: the card
+    in bf16 against the card in float32 at full depth (or the first
+    ``VARIANT_F32_LAYERS`` layers where float32 does not fit beside bf16)
+    within 5e-2 relative L2, argmax equal unless tied; and the card in
+    float32 against the CPU in float32 on the first
+    ``VARIANT_CPU_LAYERS`` layers (whisper's encoder cut alike) within
+    1e-3.  On the card a prefill launches B2 once a layer and a
+    ``decode_step`` B4 once a layer."""
+    rng = np.random.default_rng(6)
+    prompts = []
+    for n in (23, 61):
+        ex = (variant_extras(cfg, rng) if cfg.family in ("vlm", "audio")
+              else {})
+        prompts.append((rng.integers(0, cfg.vocab_size, n), ex))
+    depth = VARIANT_F32_LAYERS.get(cfg.arch_id, cfg.n_layers)
+    depth = min(depth, cfg.n_layers)
+    if depth < cfg.n_layers:
+        cut_cfg, cut = variant_cut(cfg, params, depth)
+        bf16 = (rt.build_model(cut_cfg), cut)
+    else:
+        cut_cfg, bf16 = cfg, (model, params)
+    f32_model = rt.build_model(cut_cfg.replace(dtype="float32"))
+    pairs = {"bf16": (bf16, "cuda"),
+             "f32": ((f32_model, to_f32(bf16[1], device="cuda")), "cuda")}
+    cpu_depth = min(VARIANT_CPU_LAYERS, depth)
+    small_cfg, small = variant_cut(cfg, params, cpu_depth)
+    small_model = rt.build_model(small_cfg.replace(dtype="float32"))
+    if cpu_depth < depth:
+        pairs["f32 cut"] = ((small_model, to_f32(small, device="cuda")),
+                            "cuda")
+    pairs["cpu"] = ((small_model, to_f32(small)), "cpu")
+    runs = {}
+    for label, ((mdl, prm), dev) in pairs.items():
+        runs[label] = []
+        for prompt, ex in prompts:
+            out, launches = variant_logits(torch, rt, mdl, prm, dev, prompt,
+                                           ex, counters)
+            runs[label].append(out)
+            if dev == "cuda":
+                L = mdl.cfg.n_layers
+                check(launches["prefill"]["flash_attention_bhsd"] == L
+                      and launches["decode_step"]["decode_ring"] == L,
+                      f"{tag} {label}: prefill / decode_step launched "
+                      f"{launches} (want {L} flash_attention_bhsd and "
+                      f"{L} decode_ring)")
+        del prm
+    del pairs, bf16
+    torch.cuda.empty_cache()
+    print(f"[{tag}] a prefill launches one flash_attention_bhsd and a "
+          f"decode_step one decode_ring a layer (bf16 and float32)")
+    for i, (prompt, ex) in enumerate(prompts):
+        for j, name in enumerate(("prefill", "paged step", "decode_step")):
+            what = (f"{cfg.arch_id} prompt of {len(prompt)}"
+                    f"{' + ' + '/'.join(ex) if ex else ''}: {name}")
+            same, gap, err = compare_logits(
+                torch, f"{what} ({depth} layers)", runs["bf16"][i][j],
+                runs["f32"][i][j], ref_type="card f32")
+            check(same or gap <= err,
+                  f"{what}: card bf16 and f32 argmax differ by a logit gap "
+                  f"of {gap:.3e} > the runs' max difference {err:.3e}")
+            same, _, _ = compare_logits(
+                torch, f"{what} ({cpu_depth} layers)",
+                runs["f32 cut" if cpu_depth < depth else "f32"][i][j],
+                runs["cpu"][i][j], tol=F32_REL_L2_TOL, card_type="f32")
+            check(same, f"{what}: card f32 and CPU argmax differ")
+
+
+def phase_variants(torch, rt, counters, timer, paged_ops, paged_ref,
+                   flash_ops, flash_ref):
+    """The five remaining architectures at full width (random weights from
+    seed 0, bf16), one after the other, each freed before the next: their
+    kernel shapes first, then for each the variant trace on the paged
+    plane (whisper also at ``prefill_chunk=0`` and on the dense plane) and
+    the logits checks.  Returns the launches of B1, B2 and B4 by arch."""
+    t0 = time.perf_counter()
+    variant_kernel_rows(torch, timer, paged_ops, paged_ref, flash_ops,
+                        flash_ref)
+    print(f"[time] variants: kernel shapes, {time.perf_counter() - t0:.1f} s "
+          f"into the phase")
+    out = {}
+    for arch in VARIANTS:
+        t1 = time.perf_counter()
+        cfg = rt.get_config(arch)
+        tag = f"variants {arch}"
+        model = rt.build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+        torch.cuda.synchronize()
+        leaves = list(tree_leaves(params))
+        n_bytes = sum(v.numel() * v.element_size() for v in leaves)
+        extra = ""
+        if cfg.family == "audio":
+            mem = (2 * cfg.n_layers * cfg.encoder_seq * cfg.n_kv_heads
+                   * cfg.head_dim_ * 2)
+            extra = f"; cross-attention memory {mem} bytes a slot"
+        print(f"[{tag}] {cfg.family}, {cfg.n_layers} layers"
+              f"{f' (+{cfg.n_encoder_layers} encoder)' if cfg.family == 'audio' else ''}"
+              f", d_model {cfg.d_model}, heads {cfg.n_heads}/"
+              f"{cfg.n_kv_heads}, head_dim {cfg.head_dim_}, d_ff {cfg.d_ff}, "
+              f"{cfg.norm_type} norm, {cfg.mlp_type}, rope_pct "
+              f"{cfg.rope_pct}, window {cfg.sliding_window}, vocab "
+              f"{cfg.vocab_size}; {sum(v.numel() for v in leaves)} params, "
+              f"{n_bytes} bytes of weights measured "
+              f"({n_bytes / 2**30:.2f} GiB){extra}; set up in "
+              f"{time.perf_counter() - t1:.1f} s")
+        tally = ForwardTally(model)
+        _, launches = variant_serve(torch, rt, model, params, counters,
+                                    tally, tag)
+        got = {k: launches[k] for k in ("paged_decode_chunk",
+                                        "flash_attention_bhsd")}
+        if cfg.family == "audio":
+            _, mono = variant_serve(torch, rt, model, params, counters,
+                                    tally, tag, prefill_chunk=0)
+            check(mono["flash_attention_bhsd"] == cfg.n_layers * 8,
+                  f"{tag}: prefill_chunk=0 launched "
+                  f"{mono['flash_attention_bhsd']} flash kernels")
+            got["flash_attention_bhsd (prefill_chunk=0)"] = \
+                mono["flash_attention_bhsd"]
+            variant_serve(torch, rt, model, params, counters, tally, tag,
+                          paged=False)
+        variant_logits_check(torch, rt, cfg, model, params, counters, tag)
+        got["decode_ring (one decode_step)"] = cfg.n_layers
+        out[arch] = got
+        del model, params, leaves, tally
+        torch.cuda.empty_cache()
+        print(f"[time] variants: {arch} done, "
+              f"{time.perf_counter() - t0:.1f} s into the phase "
+              f"({time.perf_counter() - t1:.1f} s)")
+    print(f"[variants] launches by arch: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3352,6 +3783,10 @@ def main() -> int:
         rows["rglru_scan"], launches["rglru_scan"] = phase_hybrid(
             torch, rt, counters, timer, scan_ops, scan_ref, flash_ops,
             flash_ref, paged_ops, paged_ref)
+        print(f"[time] hybrid done at {time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
+        phase_variants(torch, rt, counters, timer, paged_ops, paged_ref,
+                       flash_ops, flash_ref)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,9 +1,8 @@
-"""Architecture configs the port supports so far.
+"""Architecture configs: the JAX package's ten, field for field.
 
 ``get_config(arch_id)`` returns the exact published configuration and
 ``get_smoke_config(arch_id)`` the reduced same-family variant the CPU tests
-use.  An architecture the JAX package has but the port has not reached yet
-raises, naming the ROADMAP queue that ports it.
+use (<=2 layers, d_model<=512, <=4 experts).
 """
 
 from __future__ import annotations
@@ -13,16 +12,31 @@ from typing import Dict, List
 
 from .base import ModelConfig
 
-ARCH_IDS: List[str] = ["qwen3_0_6b", "qwen3_moe_235b_a22b",
-                       "granite_moe_1b_a400m", "mamba2_130m",
-                       "recurrentgemma_9b"]
+ARCH_IDS: List[str] = [
+    "qwen3_0_6b",
+    "stablelm_1_6b",
+    "qwen3_1_7b",
+    "starcoder2_15b",
+    "recurrentgemma_9b",
+    "mamba2_130m",
+    "qwen3_moe_235b_a22b",
+    "phi_3_vision_4_2b",
+    "whisper_medium",
+    "granite_moe_1b_a400m",
+]
 
+# accepted aliases: the published names, with dashes and dots
 _ALIASES: Dict[str, str] = {
     "qwen3-0.6b": "qwen3_0_6b",
-    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
-    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
-    "mamba2-130m": "mamba2_130m",
+    "stablelm-1.6b": "stablelm_1_6b",
+    "qwen3-1.7b": "qwen3_1_7b",
+    "starcoder2-15b": "starcoder2_15b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "mamba2-130m": "mamba2_130m",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
+    "whisper-medium": "whisper_medium",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
 }
 
 
@@ -33,10 +47,7 @@ def canonical(arch_id: str) -> str:
 def _module(arch_id: str):
     name = canonical(arch_id)
     if name not in ARCH_IDS:
-        raise KeyError(
-            f"arch {arch_id!r} is not ported yet (the port has {ARCH_IDS}); "
-            f"the other architectures wait in ROADMAP.md queue A "
-            f"(items A11-A12)")
+        raise KeyError(f"unknown arch {arch_id!r}; have {ARCH_IDS}")
     return importlib.import_module(f".{name}", __name__)
 
 

@@ -46,6 +46,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 
+from ..configs import ARCH_IDS
 from ..device import DeviceLike
 from ..workloads.router import build_pool_runtime
 
@@ -325,7 +326,9 @@ def main() -> None:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--replicas", type=int, default=2)
-    p.add_argument("--arch", default="qwen3_0_6b")
+    p.add_argument("--arch", default="qwen3_0_6b",
+                   help=f"the replicas' smoke config: one of {ARCH_IDS} "
+                        f"(or its dashed alias)")
     p.add_argument("--max-batch", type=int, default=4)
     p.add_argument("--max-seq", type=int, default=128)
     p.add_argument("--max-new", type=int, default=32,

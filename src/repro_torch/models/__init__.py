@@ -1,4 +1,4 @@
-"""PyTorch model zoo of the port (the dense and MoE families so far)."""
+"""PyTorch model zoo of the port: every family of the JAX package."""
 
 from .model import Model, build_model
 

@@ -1,6 +1,8 @@
 """Shared model building blocks (PyTorch, nested-dict params).
 
-The port of the JAX package's ``models/layers.py`` for the dense family.
+The port of the JAX package's ``models/layers.py`` for serving: norms (rms
+and layer), RoPE (partial with ``rope_pct``), attention, the swiglu and
+gelu MLPs.
 Layouts match the reference at every public function: activations
 [B, S, D], q [B, S, H, Dh], k/v [B, S, Hkv, Dh], KV pages
 [n_pages, P, Hkv, Dh].  Activations flow in ``cfg.torch_dtype``; norms and
@@ -38,6 +40,24 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * weight.float()
     return out.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm in f32 over the population variance (``jnp.var``), not
+    torch's default unbiased one."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * weight.float() + bias.float()
+    return out.to(x.dtype)
+
+
+def apply_norm(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.norm_type == "layer":
+        return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
+    return rms_norm(x, p["w"], cfg.norm_eps)
 
 
 # -------------------------------------------------------------------- RoPE
@@ -304,10 +324,11 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 # --------------------------------------------------------------------- MLP
 def mlp_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.mlp_type != "swiglu":
-        raise NotImplementedError(
-            f"mlp_type {cfg.mlp_type!r} is not ported yet (ROADMAP.md A11)")
-    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    if cfg.mlp_type == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(x @ p["w_up"], approximate="tanh")
     return h @ p["w_down"]
 
 

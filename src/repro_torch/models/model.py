@@ -3,13 +3,17 @@
 The same façade as the JAX package's ``models/model.py`` for the serving
 entry points: the paged plane's ``prefill`` and ``decode_chunk_paged``, and
 the dense slot-cache plane's ``init_cache``, ``decode_step`` and
-``decode_chunk``.  The dense and MoE rms/swiglu families are ported,
-sliding windows included; the MoE layers run the reference's serving
-dispatch (``moe_serve_impl="dropless"``).  The ssm family (mamba2) and the
+``decode_chunk``; and the encoder-decoder's ``encode_cross``.  Every
+family of the reference is served: dense (rms or layer norm, swiglu or
+gelu MLPs, partial RoPE, sliding windows), MoE (the reference's serving
+dispatch, ``moe_serve_impl="dropless"``), the VLM (the dense backbone
+behind a fused image prefix: the batch's ``image_embeds``) and the
+encoder-decoder (the batch's ``frames``).  The ssm family (mamba2) and the
 hybrid family (recurrentgemma) have no pages: their ``decode_chunk_paged``
 is None, and the engine keeps their decode state (and the hybrid's
-sliding-window K/V rings) in a ``StateCachePool``.  The other families
-raise, naming the ROADMAP item that ports them.
+sliding-window K/V rings) in a ``StateCachePool``.  Training
+(``forward``, ``loss_fn``) and ``input_specs`` are not ported (ROADMAP.md
+A14, A15).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from . import rglru, ssm, transformer
+from . import encdec, rglru, ssm, transformer, vlm
 
 
 @dataclass
@@ -43,23 +47,50 @@ class Model:
     decode_chunk_paged: Optional[Callable[..., Any]]
     # init_cache(batch, max_seq, device=None) -> {"k", "v", "pos"}, or
     # {"conv", "ssm", "pos"} for the ssm family, {"conv", "h", "k", "v",
-    # "pos"} for the hybrid
+    # "pos"} for the hybrid, {"k", "v", "xk", "xv", "pos"} for audio
     init_cache: Callable[..., dict]
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    unsupported = []
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        unsupported.append(f"family {cfg.family!r} (ROADMAP.md A12)")
-    if cfg.norm_type != "rms" or cfg.mlp_type != "swiglu":
-        unsupported.append("layer norm / gelu MLPs (ROADMAP.md A11)")
-    if unsupported:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: not ported yet: " + "; ".join(unsupported))
+    # encode_cross(params, frames [B,T_enc,D]) -> (xk, xv) [L,B,T_enc,Hkv,
+    # Dh]: the encoder-decoder's cross-attention memory, so a chunked
+    # admission fills a slot without a monolithic prefill; None elsewhere
+    encode_cross: Optional[Callable[..., Any]] = None
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    _check_supported(cfg)
+    if cfg.family == "vlm":
+        return Model(
+            cfg=cfg,
+            init=lambda generator, device=None: vlm.init_params(
+                cfg, generator, device),
+            prefill=lambda params, batch, **kw: vlm.prefill(
+                params, cfg, batch["tokens"], batch.get("image_embeds"),
+                **kw),
+            decode_step=lambda params, tok, cache: vlm.decode_step(
+                params, cfg, tok, cache),
+            decode_chunk=lambda params, toks, n, cache: vlm.decode_chunk(
+                params, cfg, toks, n, cache),
+            decode_chunk_paged=lambda params, toks, n, cache, kp, vp, pt,
+            **kw: vlm.decode_chunk_paged(params, cfg, toks, n, cache, kp,
+                                         vp, pt, **kw),
+            init_cache=functools.partial(vlm.init_cache, cfg),
+        )
+    if cfg.family == "audio":
+        return Model(
+            cfg=cfg,
+            init=lambda generator, device=None: encdec.init_params(
+                cfg, generator, device),
+            prefill=lambda params, batch, **kw: encdec.prefill(
+                params, cfg, batch["tokens"], batch["frames"], **kw),
+            decode_step=lambda params, tok, cache: encdec.decode_step(
+                params, cfg, tok, cache),
+            decode_chunk=lambda params, toks, n, cache: encdec.decode_chunk(
+                params, cfg, toks, n, cache),
+            decode_chunk_paged=lambda params, toks, n, cache, kp, vp, pt,
+            **kw: encdec.decode_chunk_paged(params, cfg, toks, n, cache, kp,
+                                            vp, pt, **kw),
+            init_cache=functools.partial(encdec.init_cache, cfg),
+            encode_cross=lambda params, frames: encdec.encode_cross(
+                params, cfg, frames),
+        )
     if cfg.family == "ssm":
         return Model(
             cfg=cfg,
@@ -88,6 +119,8 @@ def build_model(cfg: ModelConfig) -> Model:
             decode_chunk_paged=None,
             init_cache=functools.partial(rglru.init_cache, cfg),
         )
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"unknown family {cfg.family!r}")
     return Model(
         cfg=cfg,
         init=lambda generator, device=None: transformer.init_params(

@@ -1,5 +1,5 @@
-"""Decoder-only transformer (the dense qwen3 family and the MoE families),
-serving entry points.
+"""Decoder-only transformer (the dense qwen3 / stablelm-2 / starcoder2
+family, the MoE families and the VLM backbone), serving entry points.
 
 The port of the JAX package's ``models/transformer.py`` for serving:
 ``init_params``, the monolithic ``prefill``, the paged-native
@@ -14,6 +14,7 @@ return it, where the reference returns a new cache.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -24,11 +25,75 @@ from . import layers as L
 from . import moe as M
 
 
+# float32 elements a draw may hold at once (1 GiB): a larger stack of
+# layers is drawn one layer at a time
+_DRAW_ELEMS = 1 << 28
+
+
 def _normal(shape, std: float, cfg: ModelConfig, generator: torch.Generator,
             device: torch.device) -> torch.Tensor:
+    if math.prod(shape) > _DRAW_ELEMS and len(shape) > 2:
+        out = torch.empty(shape, dtype=cfg.torch_dtype, device=device)
+        for part in out:
+            part.copy_(_normal(part.shape, std, cfg, generator, device))
+        return out
     x = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
     return (x * std).to(cfg.torch_dtype)
+
+
+def _glorot(a: int, b: int) -> float:
+    return (2.0 / (a + b)) ** 0.5
+
+
+def init_norm(cfg: ModelConfig, shape, device: torch.device) -> dict:
+    """Ones (and, for a layer norm, a zero bias ``"b"``) of ``shape``."""
+    p = {"w": torch.ones(shape, dtype=cfg.torch_dtype, device=device)}
+    if cfg.norm_type == "layer":
+        p["b"] = torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
+    return p
+
+
+def init_attention(cfg: ModelConfig, NL: int, generator: torch.Generator,
+                   device: torch.device) -> dict:
+    """``NL`` stacked attention layers: the reference's
+    ``layers.init_attention`` tree, shapes and scales."""
+    D, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+
+    def n(shape, std):
+        return _normal(shape, std, cfg, generator, device)
+
+    attn = {"wq": n((NL, D, H, Dh), _glorot(D, Dh)),
+            "wk": n((NL, D, Hkv, Dh), _glorot(D, Dh)),
+            "wv": n((NL, D, Hkv, Dh), _glorot(D, Dh)),
+            "wo": n((NL, H, Dh, D), _glorot(Dh, D))}
+    if cfg.qk_norm:
+        attn["q_norm"] = torch.ones((NL, Dh), dtype=cfg.torch_dtype,
+                                    device=device)
+        attn["k_norm"] = torch.ones((NL, Dh), dtype=cfg.torch_dtype,
+                                    device=device)
+    return attn
+
+
+def init_mlp(cfg: ModelConfig, NL: int, generator: torch.Generator,
+             device: torch.device) -> dict:
+    """``NL`` stacked dense MLPs (``w_gate`` for swiglu only)."""
+    D, F = cfg.d_model, cfg.d_ff
+    s_in = _glorot(D, F)
+    mlp = {"w_up": _normal((NL, D, F), s_in, cfg, generator, device),
+           "w_down": _normal((NL, F, D), s_in, cfg, generator, device)}
+    if cfg.mlp_type == "swiglu":
+        mlp["w_gate"] = _normal((NL, D, F), s_in, cfg, generator, device)
+    return mlp
+
+
+def init_embedding(cfg: ModelConfig, generator: torch.Generator,
+                   device: torch.device) -> dict:
+    D, V = cfg.d_model, cfg.vocab_size
+    embed = {"tok": _normal((V, D), D ** -0.5, cfg, generator, device)}
+    if not cfg.tie_embeddings:
+        embed["out"] = _normal((D, V), D ** -0.5, cfg, generator, device)
+    return embed
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -37,44 +102,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``transformer.init_params``; the draws come from ``generator``, which
     must live on ``device``."""
     dev = resolve_device(device)
-    D, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    F, V, NL = cfg.d_ff, cfg.vocab_size, cfg.n_layers
-    dt = cfg.torch_dtype
-
-    def s(a, b):
-        return (2.0 / (a + b)) ** 0.5
-
-    def n(shape, std):
-        return _normal(shape, std, cfg, generator, dev)
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=dt, device=dev)
-
-    attn = {"wq": n((NL, D, H, Dh), s(D, Dh)),
-            "wk": n((NL, D, Hkv, Dh), s(D, Dh)),
-            "wv": n((NL, D, Hkv, Dh), s(D, Dh)),
-            "wo": n((NL, H, Dh, D), s(Dh, D))}
-    if cfg.qk_norm:
-        attn["q_norm"] = ones(NL, Dh)
-        attn["k_norm"] = ones(NL, Dh)
-    s_in = s(D, F)
-    embed = {"tok": n((V, D), D ** -0.5)}
-    if not cfg.tie_embeddings:
-        embed["out"] = n((D, V), D ** -0.5)
+    NL, D = cfg.n_layers, cfg.d_model
+    attn = init_attention(cfg, NL, generator, dev)
+    embed = init_embedding(cfg, generator, dev)
     if cfg.n_experts > 0:
         mlp = M.init_moe_layer(cfg, generator, dev, NL)
     else:
-        mlp = {"w_up": n((NL, D, F), s_in), "w_down": n((NL, F, D), s_in),
-               "w_gate": n((NL, D, F), s_in)}
+        mlp = init_mlp(cfg, NL, generator, dev)
     return {
         "embed": embed,
         "layers": {
-            "attn_norm": {"w": ones(NL, D)},
+            "attn_norm": init_norm(cfg, (NL, D), dev),
             "attn": attn,
-            "mlp_norm": {"w": ones(NL, D)},
+            "mlp_norm": init_norm(cfg, (NL, D), dev),
             "mlp": mlp,
         },
-        "final_norm": {"w": ones(D)},
+        "final_norm": init_norm(cfg, (D,), dev),
     }
 
 
@@ -93,7 +136,7 @@ def _ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _mlp_residual(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
-    h = L.rms_norm(x, lp["mlp_norm"]["w"], cfg.norm_eps)
+    h = L.apply_norm(x, lp["mlp_norm"], cfg)
     return x + _ffn(h, lp, cfg)
 
 
@@ -110,17 +153,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
 
-def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+def prefill(params: dict, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+            inputs_embeds: Optional[torch.Tensor] = None,
             pad_cache_to: Optional[int] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Process the full prompt ([B,S] int, left-padded to its bucket by the
-    engine).  Returns (last-token logits [B,V], cache) with cache k/v
-    [L,B,C,Hkv,Dh] and pos [B] = S.  C = S, or min(S, W) with a sliding
-    window W, whose last C positions are ring-aligned (slot = pos % C).
-    ``pad_cache_to`` adds decode headroom to the cache (never past W)."""
-    x = L.embed(tokens, params["embed"]).to(cfg.torch_dtype)
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None, :]
+    engine), or ``inputs_embeds`` [B,S,D] in its place (the VLM's fused
+    image prefix and text).  Returns (last-token logits [B,V], cache) with
+    cache k/v [L,B,C,Hkv,Dh] and pos [B] = S.  C = S, or min(S, W) with a
+    sliding window W, whose last C positions are ring-aligned (slot = pos
+    % C).  ``pad_cache_to`` adds decode headroom to the cache (never past
+    W)."""
+    x = (inputs_embeds if inputs_embeds is not None
+         else L.embed(tokens, params["embed"])).to(cfg.torch_dtype)
+    B, S = x.shape[0], x.shape[1]
+    dev = x.device
+    positions = torch.arange(S, device=dev)[None, :]
     n_rep = cfg.n_heads // cfg.n_kv_heads
     scale = cfg.head_dim_ ** -0.5
     W = cfg.sliding_window
@@ -128,7 +176,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        h = L.rms_norm(x, lp["attn_norm"]["w"], cfg.norm_eps)
+        h = L.apply_norm(x, lp["attn_norm"], cfg)
         q, k, v = L.attention_qkv(h, lp["attn"], cfg, positions)
         o = L.full_attention(q, L.repeat_kv(k, n_rep), L.repeat_kv(v, n_rep),
                              causal=True, window=W, scale=scale)
@@ -141,13 +189,12 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             vc = torch.roll(vc, S % C, dims=1)
         ks.append(kc)
         vs.append(vc)
-    x = L.rms_norm(x[:, -1:], params["final_norm"]["w"], cfg.norm_eps)
+    x = L.apply_norm(x[:, -1:], params["final_norm"], cfg)
     logits = L.unembed(x[:, 0], params["embed"], cfg)
     ks, vs = L.pad_cache_seq(torch.stack(ks), torch.stack(vs), C, W,
                              pad_cache_to)
     cache = {"k": ks, "v": vs,
-             "pos": torch.full((B,), S, dtype=torch.int32,
-                               device=tokens.device)}
+             "pos": torch.full((B,), S, dtype=torch.int32, device=dev)}
     return logits, cache
 
 
@@ -165,14 +212,14 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     W = cfg.sliding_window
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        h = L.rms_norm(x, lp["attn_norm"]["w"], cfg.norm_eps)
+        h = L.apply_norm(x, lp["attn_norm"], cfg)
         q, k, v = L.attention_qkv(h, lp["attn"], cfg, positions)
         ck, cv = L.kv_cache_update(cache["k"][i], cache["v"][i], k, v, pos,
                                    W)
         o = L.decode_attention(q, ck, cv, pos, cfg, window=W)
         x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
         x = _mlp_residual(x, lp, cfg)
-    x = L.rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+    x = L.apply_norm(x, params["final_norm"], cfg)
     logits = L.unembed(x[:, 0], params["embed"], cfg)
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
 
@@ -197,7 +244,7 @@ def decode_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     W = cfg.sliding_window
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        h = L.rms_norm(x, lp["attn_norm"]["w"], cfg.norm_eps)
+        h = L.apply_norm(x, lp["attn_norm"], cfg)
         q, k, v = L.attention_qkv(h, lp["attn"], cfg, positions)
         ck, cv = cache["k"][i], cache["v"][i]
         if W:
@@ -209,10 +256,27 @@ def decode_chunk(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             o = L.chunk_decode_attention(q, ck, cv, positions, cfg)
         x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
         x = _mlp_residual(x, lp, cfg)
-    x = L.rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+    x = L.apply_norm(x, params["final_norm"], cfg)
     logits = L.unembed(x, params["embed"], cfg)                  # [B,T,V]
     return logits, {"k": cache["k"], "v": cache["v"],
                     "pos": pos + valid_len}
+
+
+def paged_writes(positions: torch.Tensor, valid: torch.Tensor,
+                 page_table: torch.Tensor, P: int, C: int
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Where a paged chunk step writes: the (row, token) pairs (wb, wt) of
+    the chunk positions [B,T] that are ``valid``, have a page and lie below
+    the dense slot length C, and their (page, offset) in the pool, found
+    once per step (one device sync).  The other writes are dropped, as the
+    reference's ``mode="drop"`` scatter drops them."""
+    maxp = page_table.shape[1]
+    pslot = torch.clamp(positions // P, max=maxp - 1)
+    page_of = torch.gather(page_table.long(), 1, pslot)           # [B,T]
+    off = positions % P
+    inb = valid & (page_of >= 0) & (positions < C)
+    wb, wt = inb.nonzero(as_tuple=True)
+    return wb, wt, page_of[wb, wt], off[wb, wt]
 
 
 def decode_chunk_paged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -251,19 +315,12 @@ def decode_chunk_paged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
     W = cfg.sliding_window
     C = min(max_seq, W) if W else max_seq
-    P = k_pages.shape[2]
-    maxp = page_table.shape[1]
-    pslot = torch.clamp(positions // P, max=maxp - 1)
-    page_of = torch.gather(page_table.long(), 1, pslot)           # [B,T]
-    off = positions % P
-    inb = valid & (page_of >= 0) & (positions < C)
-    # the in-bounds rows, found once per step (one device sync)
-    wb, wt = inb.nonzero(as_tuple=True)
-    wpage, woff = page_of[wb, wt], off[wb, wt]
+    wb, wt, wpage, woff = paged_writes(positions, valid, page_table,
+                                       k_pages.shape[2], C)
 
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        h = L.rms_norm(x, lp["attn_norm"]["w"], cfg.norm_eps)
+        h = L.apply_norm(x, lp["attn_norm"], cfg)
         q, k, v = L.attention_qkv(h, lp["attn"], cfg, positions)
         kp, vp = k_pages[i], v_pages[i]
         kp.index_put_((wpage, woff), k[wb, wt].to(kp.dtype))
@@ -271,6 +328,6 @@ def decode_chunk_paged(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         o = L.paged_chunk_attention(q, kp, vp, page_table, pos, cfg)
         x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
         x = _mlp_residual(x, lp, cfg)
-    x = L.rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+    x = L.apply_norm(x, params["final_norm"], cfg)
     logits = L.unembed(x, params["embed"], cfg)                  # [B,T,V]
     return logits, {"pos": pos + valid_len.to(torch.int32)}, k_pages, v_pages

@@ -1,7 +1,7 @@
 """PyTorch inference engine: slot-based continuous batching.
 
-The port of the JAX package's ``serving/engine.py`` for the dense, MoE,
-ssm and hybrid families, on its three data planes:
+The port of the JAX package's ``serving/engine.py`` for every family
+(dense, MoE, VLM, audio, ssm, hybrid), on its three data planes:
 
   * the paged-native plane (the default): ``max_batch`` slots decode
     straight into the session pages of one ``PagedKVPool``; each step feeds
@@ -29,6 +29,15 @@ ssm and hybrid families, on its three data planes:
     tokens per step, piggybacked on the batched decode.  With
     ``prefill_chunk=0`` it runs the monolithic bucket prefill instead,
     through the flash attention kernel;
+  * non-text inputs ride on the request's ``extras``: a VLM request's
+    ``image_embeds`` [T_img, D] take the monolithic prefill (the image
+    prefix enters the cache there); an audio request's ``frames``
+    [T_enc, D] go through one ``encode_cross`` at admission, whose
+    cross-attention memory the slot keeps (``xk`` / ``xv`` rows beside
+    the K/V on every plane), and its prompt then chunks like any other.
+    An audio session is never resumed (its memory is not pooled:
+    ``resume_unsupported``) and never shares prefix pages (its K/V
+    depends on the frames);
   * ``warm_session`` replays a transcript into the pool (the replay side of
     migration) without occupying a slot;
   * the Nalar bridge's side of the engine: ``submit_async`` registers
@@ -46,9 +55,7 @@ ssm and hybrid families, on its three data planes:
 The device is ``torch.device("cuda")`` unless the caller names another;
 each step copies only the [B] greedy tokens to the host (the [B,V]
 next-token rows stay on the device unless a stochastic request samples
-from them; a verify step copies the [B,T] greedy tokens instead).  Not
-ported yet (ROADMAP.md): the vlm and audio families and request
-``extras``.
+from them; a verify step copies the [B,T] greedy tokens instead).
 """
 
 from __future__ import annotations
@@ -92,7 +99,7 @@ class EngineMetrics:
     # resumes refused because the restored cache would not fit the slot
     resume_overflows: int = 0
     # resumes refused because the family cannot restore from the pool (the
-    # reference's audio family; 0 until A12 ports it)
+    # audio family: its cross-attention memory is not pooled)
     resume_unsupported: int = 0
     # admissions/steps aborted because the pool could not provide pages
     # (all residents protected or pinned)
@@ -119,16 +126,16 @@ class EngineMetrics:
                 if self.decode_steps else 0.0)
 
 
-# the families the port serves; the reference's _CHUNKABLE_FAMILIES also
-# has vlm.  Nothing else in the engine is MoE-specific: the MoE layers live
-# inside the model's entry points.
-_SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# families whose prompts can be consumed in chunks and whose cache position
+# is a token's identity (prefix sharing).  Encoder-decoder ("audio") models
+# chunk too (``_chunked_for`` special-cases them: one ``encode_cross`` pass
+# supplies the cross-attention memory first), but stay out of this tuple:
+# it also gates prefix sharing, and audio decoder K/V depends on the
+# frames, so token identity never implies K/V identity.  Nothing in the
+# engine is MoE-specific: the MoE layers live inside the model.
+_CHUNKABLE_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 # the families whose sessions live in a StateCachePool, as on the reference
 _STATE_FAMILIES = ("ssm", "hybrid")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
 def _cache_slot_axis(key: str) -> int:
@@ -184,9 +191,6 @@ class InferenceEngine:
                  device: DeviceLike = None) -> None:
         self.model = model
         self.cfg: ModelConfig = model.cfg
-        if self.cfg.family not in _SERVED_FAMILIES:
-            raise _not_ported(f"serving the {self.cfg.family!r} family",
-                              "A12")
         self.device = resolve_device(device)
         self.params = params
         self.max_batch = max_batch
@@ -253,7 +257,8 @@ class InferenceEngine:
         # cross-session prefix sharing: admission and warm_session consult
         # the pool's prefix index
         self.prefix_sharing = bool(prefix_sharing)
-        self._prefix_share_ok = self.prefix_sharing and linear
+        self._prefix_share_ok = (self.prefix_sharing and linear
+                                 and self.cfg.family in _CHUNKABLE_FAMILIES)
         # paged-native decode: the KV pool IS the decode cache.  Windowed
         # configs qualify only when the ring never wraps (slot == position,
         # so the linear page layout matches the ring layout); the others,
@@ -264,15 +269,22 @@ class InferenceEngine:
         self._slot_C = min(self.max_seq, W) if W else self.max_seq
         # dense plane: the per-slot k/v [L,B,C,Hkv,Dh]; state-cache plane:
         # conv [L,B,K-1,C] and ssm [L,B,H,P,N], or the hybrid's conv, h
-        # [L_rec,B,W] and k/v rings [L_att,B,C,Hkv,Dh] (the slots' positions
-        # live on the host in _pos on every plane)
+        # [L_rec,B,W] and k/v rings [L_att,B,C,Hkv,Dh]; the audio family's
+        # cross memory xk/xv [L,B,T_enc,Hkv,Dh] on the dense and the paged
+        # plane (the slots' positions live on the host in _pos on every
+        # plane)
         self.cache: Dict[str, torch.Tensor] = {}
         self._blank_row_cache: Optional[Dict[str, torch.Tensor]] = None
         if self._paged:
             self._max_pages = self.pool.pages_needed(self.max_seq)
+            # the slim cache: what the pages do not hold (the K/V of a
+            # one-position cache is dropped)
+            full = model.init_cache(max_batch, 1, device=self.device)
+            drop = ("k", "v", "pos")
         else:
             full = model.init_cache(max_batch, max_seq, device=self.device)
-            self.cache = {k: v for k, v in full.items() if k != "pos"}
+            drop = ("pos",)
+        self.cache = {k: v for k, v in full.items() if k not in drop}
         # slot -> pool session key the slot decodes into (paged plane only;
         # anonymous requests get a synthetic key released at vacate)
         self._slot_sid: Dict[int, str] = {}
@@ -310,9 +322,6 @@ class InferenceEngine:
         """Queue ``req``.  Raises :class:`EngineOverloaded` when the bounded
         wait queue is at capacity (backpressure — callers retry or shed) and
         :class:`RequestExpired` when the request's deadline already passed."""
-        if req.extras:
-            raise _not_ported("requests with extras (non-text inputs)",
-                              "A12")
         if req.submitted_wall < 0:
             req.submitted_wall = time.monotonic()
         try:
@@ -390,10 +399,11 @@ class InferenceEngine:
             self.kv_registry.touch(session_id, self.instance_id, tokens, now)
 
     def generate(self, prompt, session_id: str = "",
-                 sampling: Optional[SamplingParams] = None) -> Request:
+                 sampling: Optional[SamplingParams] = None,
+                 **extras) -> Request:
         """Synchronous helper: submit + run until this request finishes."""
         req = Request.make(prompt, session_id=session_id, sampling=sampling,
-                           now=time.monotonic())
+                           now=time.monotonic(), **extras)
         self.submit(req)
         while not req.finished:
             self.step()
@@ -426,10 +436,31 @@ class InferenceEngine:
         else:
             toks[0, -S:] = req.prompt      # left-pad so last position is real
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        for k, v in req.extras.items():
+            batch[k] = self._extra(v)
         logits, row_cache = self.model.prefill(self.params, batch)
         self.metrics.prefills += 1
         self.metrics.prefill_tokens += S
         return logits, row_cache
+
+    def _extra(self, v: np.ndarray) -> torch.Tensor:
+        """A request's extra ([T, D], or batched [1, T, D]) as a batch-1
+        tensor on the device."""
+        return torch.from_numpy(v[None] if v.ndim == 2 else v).to(
+            self.device)
+
+    def _chunked_for(self, req: Request) -> bool:
+        """Whether admission feeds ``req``'s prompt through the step loop in
+        chunks (else the monolithic prefill): never with other extras than
+        an audio request's ``frames``."""
+        if self.prefill_chunk <= 0:
+            return False
+        if self.model.encode_cross is not None:
+            # encoder-decoder: one encoder pass computes the cross-attention
+            # memory (exactly the bytes prefill would), then the decoder
+            # prompt chunks like any causal family
+            return set(req.extras) == {"frames"}
+        return not req.extras
 
     def _try_resume(self, req: Request
                     ) -> Optional[Tuple[Optional[dict], int]]:
@@ -444,6 +475,14 @@ class InferenceEngine:
         incrementally would be the same prefill), so the port skips the
         load."""
         if self._state_pool:
+            return None
+        if self.model.encode_cross is not None:
+            # the decoder's self-attention K/V is poolable, but the
+            # cross-attention memory (xk/xv) is not: a resumed slot would
+            # cross-attend zeros.  Refuse and count.
+            sp = self.pool.session(req.session_id)
+            if sp is not None and sp.pages:
+                self.metrics.resume_unsupported += 1
             return None
         if self._paged:
             sp = self.pool.session(req.session_id)
@@ -466,10 +505,10 @@ class InferenceEngine:
         return row, tokens
 
     def _blank_row(self) -> Dict[str, torch.Tensor]:
-        """Zeroed single-slot cache row for chunked-prefill admission on
-        the dense and state-cache planes (recurrent state accumulates
-        unconditionally), so a recycled slot never starts from its previous
-        occupant's row."""
+        """Zeroed single-slot cache row for chunked-prefill admission
+        (recurrent state accumulates unconditionally; on the paged plane
+        the row holds the audio family's cross memory, or nothing), so a
+        recycled slot never starts from its previous occupant's row."""
         if self._blank_row_cache is None:
             self._blank_row_cache = {
                 k: torch.zeros_like(v[:, 0]) for k, v in self.cache.items()}
@@ -564,8 +603,8 @@ class InferenceEngine:
                 req.prompt = req.fallback_prompt
             if len(req.prompt) > self.max_seq - 1:
                 req.prompt = req.prompt[-(self.max_seq - 1):]
-            if (resumed is None and req.session_id and self._prefix_share_ok
-                    and len(req.prompt) > 1):
+            if (resumed is None and req.session_id and not req.extras
+                    and self._prefix_share_ok and len(req.prompt) > 1):
                 # cold session: another session may have indexed this
                 # prompt's prefix.  Adopt the shared pages and feed only
                 # the novel suffix (keep >= 1 token so the final position's
@@ -606,9 +645,15 @@ class InferenceEngine:
                     if ids is not None and len(ids) == tokens:
                         self._spec.observe(slot, ids)
                         self._spec_ok.add(slot)
-            elif self.prefill_chunk > 0:
+            elif self._chunked_for(req):
                 # chunked prefill: blank row now, prompt consumed by step()
                 # in prefill_chunk-sized pieces piggybacked on decode
+                row = self._blank_row()
+                if "frames" in req.extras:
+                    xk, xv = self.model.encode_cross(
+                        self.params, self._extra(req.extras["frames"]))
+                    row = dict(row, xk=xk[:, 0], xv=xv[:, 0])
+                set_slot(self.cache, slot, row)
                 if self._paged:
                     sid = req.session_id or f"__anon:{req.request_id}"
                     if req.session_id:
@@ -617,8 +662,6 @@ class InferenceEngine:
                         self.pool.release(sid)
                     self.pool.protect(sid)
                     self._slot_sid[slot] = sid
-                else:
-                    set_slot(self.cache, slot, self._blank_row())
                 self._pos[slot] = 0
                 self._pending_prompt[slot] = [int(t) for t in req.prompt]
                 self._slot_tokens[slot] = [] if self._prefix_share_ok \
@@ -639,9 +682,10 @@ class InferenceEngine:
     def _admit_prefilled(self, slot: int, req: Request, now: float) -> bool:
         """Monolithic admission: bucket prefill, write the row's K/V into
         the session's pages (paged plane) or the slot's cache row (dense
-        plane), sample the first token.  Returns False when the request
-        already finished (pool exhausted, or its first token met a stop
-        condition)."""
+        plane), sample the first token.  The cache covers the bucket, and
+        a VLM request's image prefix before it.  Returns False when the
+        request already finished (pool exhausted, or its first token met a
+        stop condition)."""
         logits, row_cache = self._prefill(req)
         greedy = torch.argmax(logits, dim=-1).cpu().numpy()
         tok = self._sample_slot(req, logits, 0, greedy)
@@ -650,18 +694,20 @@ class InferenceEngine:
         req.first_token_at = time.monotonic()
         S = len(req.prompt)
         bucket = min(bucket_len(S), self.max_seq)
+        tokens = int(row_cache["pos"].reshape(-1)[0])
         # left-aligned bucket prefill: pad token 0's K/V enters the leading
         # positions and is part of the provenance
-        ids = ([0] * (bucket - S) + [int(t) for t in req.prompt]
-               if self._prefix_share_ok else None)
+        full = [0] * (bucket - S) + [int(t) for t in req.prompt]
+        ids = full if self._prefix_share_ok and not req.extras else None
         self.metrics.tokens_generated += 1
         if self._paged:
             sid = req.session_id or f"__anon:{req.request_id}"
             if req.session_id:
                 self.pool.release(sid)
-            if not self.pool.write_session(sid, row_cache["k"][:, 0],
-                                           row_cache["v"][:, 0], bucket, now,
-                                           token_ids=ids):
+            if tokens > self.max_seq or not self.pool.write_session(
+                    sid, row_cache["k"][:, 0, :tokens],
+                    row_cache["v"][:, 0, :tokens], tokens, now,
+                    token_ids=ids):
                 # pool exhausted (residents all protected/pinned): deliver
                 # what we have instead of wedging the slot
                 self.metrics.paged_append_failures += 1
@@ -678,12 +724,13 @@ class InferenceEngine:
                 # the pages hold the left-padded bucket, whose tokens are
                 # known whether or not they were indexed
                 self._spec.reset(slot)
-                self._spec.observe(slot, [0] * (bucket - S)
-                                   + [int(t) for t in req.prompt])
-                self._spec_ok.add(slot)
-        else:
-            set_slot(self.cache, slot, row_cache)
-        self._pos[slot] = bucket
+                if tokens == len(full):
+                    self._spec.observe(slot, full)
+                    self._spec_ok.add(slot)
+        # the slot's cache row: K/V on the dense plane, the audio memory on
+        # both
+        set_slot(self.cache, slot, row_cache)
+        self._pos[slot] = tokens
         self._slot_tokens[slot] = ids
         if (len(req.generated) >= req.sampling.max_new_tokens
                 or tok == req.sampling.eos_token):
@@ -902,8 +949,8 @@ class InferenceEngine:
         valid_t = torch.from_numpy(valid).to(dev)
         logits, _cache, _kp, _vp = self.model.decode_chunk_paged(
             self.params, torch.from_numpy(toks).to(dev), valid_t,
-            {"pos": torch.from_numpy(pos).to(dev)}, self.pool.k, self.pool.v,
-            torch.from_numpy(pt).to(dev), max_seq=self.max_seq)
+            dict(self.cache, pos=torch.from_numpy(pos).to(dev)), self.pool.k,
+            self.pool.v, torch.from_numpy(pt).to(dev), max_seq=self.max_seq)
         last = torch.clamp(valid_t.long() - 1, min=0)
         rows = logits[torch.arange(logits.shape[0], device=dev), last]
         return logits, rows

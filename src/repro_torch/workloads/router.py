@@ -162,21 +162,15 @@ def build_pool_runtime(*, replicas: int = 3, arch: str = "qwen3_0_6b",
     replicas``; ``None`` = an untiered pool) and ``tier_archs`` maps a tier
     label to the smoke arch its replicas load (labels absent from the map
     fall back to ``arch``).  Pair with a ``TierRoutePolicy`` and
-    ``model_tier`` work hints (see :func:`tiered_driver`).  A tier arch the
-    port has not reached raises, naming ROADMAP.md A11.  ``draft_layers >
+    ``model_tier`` work hints (see :func:`tiered_driver`).  ``draft_layers >
     0`` arms every replica whose model has more layers than that with a
     layer-truncated self-draft (speculative decoding, ``spec_k``
     proposals per round).
     """
-    from ..configs import ARCH_IDS, canonical
     from ..serving import InferenceEngine, SamplingParams
     from ..serving.pool import register_engine_pool
     from ..serving.speculative import truncated_draft
 
-    for a in (tier_archs or {}).values():
-        if canonical(a) not in ARCH_IDS:
-            raise NotImplementedError(
-                f"tier arch {a!r} is not ported yet (ROADMAP.md A11)")
     rt = NalarRuntime(simulate=False,
                       nodes={"n0": {"GPU": replicas, "CPU": 8}},
                       policy=policy, control_interval=control_interval,

@@ -184,11 +184,24 @@ def test_build_model_takes_windows_and_refuses_the_rest():
                                        cfg.n_kv_heads, cfg.head_dim_)
     assert build_model(cfg).init_cache(3, 40, device="cpu")["k"].shape[2] \
         == 40
-    for bad, item in ((dict(norm_type="layer"), "A11"),
-                      (dict(mlp_type="gelu"), "A11"),
-                      (dict(family="vlm"), "A12")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(cfg.replace(**bad))
+    # layer norm, the gelu MLP and the VLM family are ported now: each
+    # builds, with the reference's tree, and runs a prefill
+    toks = torch.arange(1, 9)[None]
+    for kw, leaf in ((dict(norm_type="layer"), ("final_norm", "b")),
+                     (dict(mlp_type="gelu"), ("layers", "mlp", "w_up")),
+                     (dict(family="vlm"), ("embed", "tok"))):
+        variant = build_model(cfg.replace(**kw))
+        params = variant.init(torch.Generator().manual_seed(0), device="cpu")
+        node = params
+        for key in leaf:
+            node = node[key]
+        logits, _ = variant.prefill(params, {"tokens": toks})
+        assert tuple(logits.shape) == (1, cfg.vocab_size)
+        assert torch.isfinite(logits.float()).all()
+    assert "w_gate" not in build_model(cfg.replace(mlp_type="gelu")).init(
+        torch.Generator(), device="cpu")["layers"]["mlp"]
+    with pytest.raises(ValueError, match="family"):
+        build_model(cfg.replace(family="encoder-only"))
 
 
 # ------------------------------------------------------------------ engine

@@ -68,7 +68,21 @@ MERGE_SECOND_STAGE = [
      tuple(int(maxp * 64 * f) for f in (0.3, 0.5, 0.65, 0.7, 0.8, 0.9,
                                          0.95)) + (maxp * 64 - 8,))
     for i, maxp in enumerate((48, 24))]
+# the other architectures' serving shapes (B=8, T=8, pages of 64, the
+# engine's default pool of 272 pages, 16 table entries): stablelm-1.6b's
+# and whisper-medium's full MHA at head dim 64 (n_rep 1), phi-3-vision's
+# at 96, and starcoder2-15b's 48 query heads over 4 kv heads at 128 (n_rep
+# 12: R = 96 rows in 6 m-tiles)
+VARIANT_PAGED = [(70, 8, 8, 32, 1, 64, 64, 272, 16),
+                 (71, 8, 8, 16, 1, 64, 64, 272, 16),
+                 (72, 8, 8, 32, 1, 96, 64, 272, 16),
+                 (73, 8, 8, 4, 12, 128, 64, 272, 16)]
 MAIN_FLASH = (9, 16, 500, 500, 128, True, None)
+# phi-3-vision's monolithic prefill (576 image tokens before a text bucket
+# of 128) at its head dim 96, and the same length at head dim 64: the
+# 128- and 64-wide d-tiles, zero-padded past 96
+VARIANT_FLASH = [(74, 32, 704, 704, 96, True, None),
+                 (75, 32, 704, 704, 64, True, None)]
 # recurrentgemma-9b's prefill attention (16 heads of 256, window 2048): the
 # 512-token bucket of an admission, a 128 window over it, and a ragged one
 MAIN_FLASH_256 = [(12, 16, 512, 512, 256, True, 2048),
@@ -93,6 +107,12 @@ MAIN_RING = [(9, 8, 1024, 8, 2, 128, None), (10, 8, 256, 8, 2, 128, 256)]
 # [1, 2C), so most rows have wrapped their cache
 MAIN_RING_256 = [(15, 8, 1024, 1, 16, 256, 2048),
                  (16, 8, 2048, 1, 16, 256, 2048)]
+# decode_step of stablelm-1.6b (32 heads of 64, n_rep 1) and of
+# starcoder2-15b (n_rep 12 at 128, and its window of 4096 over a ring of
+# 4096 whose positions wrap) over B=8
+VARIANT_RING = [(76, 8, 1024, 32, 1, 64, None),
+                (77, 8, 1024, 4, 12, 128, None),
+                (78, 8, 4096, 4, 12, 128, 4096)]
 # the dropless MoE of full-width granite-moe-1b-a400m (E=32, D=1024, F=512)
 # over an engine step's 64 rows and over 37 (a row-tile tail); and a width
 # whose D (40) and F (24) are no multiple of the kernel's sub-tiles
@@ -146,7 +166,8 @@ def _paged_chunk_inputs(case, device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", PAGED_CASES + [MAIN_PAGED]
-                         + PAGED_SPLIT_EDGES + MERGE_SECOND_STAGE)
+                         + PAGED_SPLIT_EDGES + MERGE_SECOND_STAGE
+                         + VARIANT_PAGED)
 def test_paged_chunk_kernel_matches_plain(cuda_device, dtype, case):
     q, kp, vp, pt, pos, n_rep = _paged_chunk_inputs(case, cuda_device, dtype)
     D = q.shape[-1]
@@ -165,7 +186,7 @@ def test_paged_chunk_kernel_matches_plain(cuda_device, dtype, case):
 @pytest.mark.parametrize("case", [MAIN_PAGED, PAGED_SPLIT_EDGES[1],
                                   PAGED_SPLIT_EDGES[2], PAGED_SPLIT_EDGES[7],
                                   PAGED_SPLIT_EDGES[8]]
-                         + MERGE_SECOND_STAGE)
+                         + MERGE_SECOND_STAGE + VARIANT_PAGED)
 def test_paged_chunk_rows_do_not_depend_on_the_batch_or_the_chunk(
         cuda_device, dtype, case):
     """Each sequence of a launch equals, bitwise, a B=1 launch of it, and
@@ -191,7 +212,8 @@ def test_paged_chunk_rows_do_not_depend_on_the_batch_or_the_chunk(
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [MAIN_PAGED, PAGED_SPLIT_EDGES[2],
-                                  PAGED_SPLIT_EDGES[5], PAGED_SPLIT_EDGES[7]])
+                                  PAGED_SPLIT_EDGES[5], PAGED_SPLIT_EDGES[7],
+                                  VARIANT_PAGED[2]])
 def test_paged_chunk_kernel_never_reads_invisible_tokens(cuda_device, dtype,
                                                           case):
     """NaN in the pool pages no table holds and in every token past
@@ -432,7 +454,7 @@ def test_paged_decode_kernel_skips_pages_it_cannot_see(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", FLASH_CASES + [MAIN_FLASH]
-                         + MAIN_FLASH_256 + FLASH_TILE_EDGES)
+                         + MAIN_FLASH_256 + FLASH_TILE_EDGES + VARIANT_FLASH)
 def test_flash_kernel_matches_plain(cuda_device, dtype, case):
     seed, BH, Sq, Skv, D, causal, window = case
     rng = np.random.default_rng(seed)
@@ -449,7 +471,8 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D, window", [(128, None), (256, 2048), (64, 100)])
+@pytest.mark.parametrize("D, window", [(128, None), (256, 2048), (64, 100),
+                                      (96, None), (64, None)])
 def test_flash_rows_do_not_depend_on_the_sequence_length(cuda_device, dtype,
                                                          D, window):
     """Under a causal mask the rows of an S=512 launch equal, bitwise, the
@@ -476,7 +499,7 @@ def _ring_inputs(case, device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", RING_CASES + MAIN_RING + MAIN_RING_256
-                         + RING_SPLIT_EDGES)
+                         + RING_SPLIT_EDGES + VARIANT_RING)
 def test_ring_kernel_matches_plain(cuda_device, dtype, case):
     q, ck, cv, pos, n_rep, window = _ring_inputs(case, cuda_device, dtype)
     D = q.shape[-1]
@@ -492,7 +515,7 @@ def test_ring_kernel_matches_plain(cuda_device, dtype, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", MAIN_RING + MAIN_RING_256)
+@pytest.mark.parametrize("case", MAIN_RING + MAIN_RING_256 + VARIANT_RING)
 def test_ring_rows_do_not_depend_on_the_batch(cuda_device, dtype, case):
     """Each row of a B=8 launch equals, bitwise, a B=1 launch of that row:
     the ring's splits are fixed by C alone and merged in split order."""

@@ -325,11 +325,19 @@ def test_build_model_takes_ssm_and_refuses_hybrid():
     assert model.decode_chunk_paged is None
     assert set(model.init_cache(2, 16, device="cpu")) == {"conv", "ssm",
                                                           "pos"}
-    params = model.init(torch.Generator(), device="cpu")
-    # the hybrid is served now (tests/test_torch_rglru.py); vlm waits
-    with pytest.raises(NotImplementedError, match="A12"):
-        TEngine(dataclasses.replace(model, cfg=tcfg.replace(family="vlm")),
-                params, device="cpu")
+    # the hybrid is served (tests/test_torch_rglru.py), and so is the vlm
+    # (tests/test_torch_vlm_audio.py): an engine over phi-3-vision's smoke
+    # config takes a request with an image prefix
+    vcfg = rt.get_smoke_config("phi_3_vision_4_2b")
+    vmodel = build_model(vcfg)
+    engine = TEngine(vmodel, vmodel.init(torch.Generator(), device="cpu"),
+                     max_batch=2, max_seq=64, page_size=8, device="cpu")
+    image = np.zeros((vcfg.n_image_tokens, vcfg.d_model), np.float32)
+    req = engine.generate(list(range(1, 6)), session_id="v",
+                          sampling=TSampling(max_new_tokens=3),
+                          image_embeds=image)
+    assert len(req.generated) == 3 and req.decode_path == "paged"
+    assert engine.pool.session("v").tokens == vcfg.n_image_tokens + 16 + 2
 
 
 def test_ssm_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):

@@ -12,8 +12,8 @@ concatenate to the completion value with TTFT stamped; and a bridge
 drained in the middle of a stream, which fails the request fast instead
 of hanging its consumer.  Then the port's own entry points: its
 ``launch.serve.selftest`` over real TCP on the CPU (streamed text byte
-for byte the non-streamed answer), and ``build_pool_runtime``'s refusals
-of what the port has not reached.
+for byte the non-streamed answer), and ``build_pool_runtime``'s
+speculating replicas and tiered pools (qwen3-1.7b as the large tier).
 """
 
 import threading
@@ -213,7 +213,33 @@ def test_port_selftest_serves_over_tcp_on_the_cpu(capsys):
     assert "PASS" in capsys.readouterr().out
 
 
-def test_port_pool_builder_refuses_what_is_not_ported():
+def _tiered_pool(s):
+    """A two-replica pool whose large tier loads qwen3-1.7b's smoke config,
+    the Router's tier table installed, one ``tiered_driver`` request per
+    tier.  Returns each replica's (tier, arch, completed, tokens)."""
+    rt = s.router.build_pool_runtime(
+        replicas=2, tiers=["small", "large"],
+        tier_archs={"large": "qwen3_1_7b"}, max_new_tokens=4,
+        kv_affinity=False, policy=s.core.PolicyChain(), **s.engine_kw)
+    backend = rt.engine_backends["llm"]
+    iids = sorted(backend.instance_ids)
+    rt.router.set_tiers("llm", {backend.bridge_of(i).engine.tier: [i]
+                                for i in iids})
+    rt.start()
+    try:
+        for tier in ("large", "small"):
+            run_request(rt, s.router.tiered_driver, f"{tier} query", tier, 4)
+        out = []
+        for iid in iids:
+            eng = backend.bridge_of(iid).engine
+            out.append((eng.tier, eng.cfg.arch_id, eng.metrics.completed,
+                        eng.metrics.tokens_generated))
+        return out
+    finally:
+        rt.shutdown()
+
+
+def test_port_pool_builder_refuses_what_is_not_ported(stacks):
     from repro_torch.workloads.router import build_pool_runtime
     # speculative decoding is ported: draft_layers arms the replicas
     rt = build_pool_runtime(replicas=1, draft_layers=1, device="cpu")
@@ -222,9 +248,11 @@ def test_port_pool_builder_refuses_what_is_not_ported():
         assert engine.telemetry()["speculative"] is True
     finally:
         rt.shutdown()
-    with pytest.raises(NotImplementedError, match="A11"):
-        build_pool_runtime(replicas=2, tiers=["small", "large"],
-                           tier_archs={"large": "qwen3_1_7b"}, device="cpu")
+    # every arch is ported (A11): a tiered pool with qwen3-1.7b as its
+    # large tier serves a request on each tier, as the reference's does
+    assert same(stacks, _tiered_pool) == [
+        ("small", "qwen3-0.6b-smoke", 1, 4),
+        ("large", "qwen3-1.7b-smoke", 1, 4)]
     rt = build_pool_runtime(replicas=2, device="cpu", prefix_sharing=False)
     try:
         engines = [b.engine for b in rt.engine_backends["llm"].bridges
