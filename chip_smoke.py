@@ -3709,6 +3709,287 @@ def phase_variants(torch, rt, counters, timer, paged_ops, paged_ref,
     return out
 
 
+# -------------------------------------------------------------- phase train
+# card float32 vs CPU float32 on one loss and its gradients: the same
+# float32 math (cuBLAS without TF32, which is torch's default) summed in
+# another order
+TRAIN_LOSS_REL_TOL = 1e-5
+TRAIN_GRAD_REL_L2_TOL = 1e-4
+# qwen3-0.6b's parameters (the model-FLOPs share counts 6 per parameter
+# and token)
+QWEN3_PARAMS = 0.596e9
+
+
+def train_leaves(tree):
+    """(path, tensor) of a parameter tree in the port's leaf order (keys
+    sorted, as the gradients of ``loss_and_grads`` come)."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            for path, v in train_leaves(tree[k]):
+                yield f"{k}.{path}", v
+        else:
+            yield k, tree[k]
+
+
+def train_batches(cfg, batch, seq, n, seed=0):
+    """``n`` batches of the synthetic corpus, made before any step (the
+    corpus draws on the host: ~0.6 s a batch of 8 x 512 at qwen3's vocab)."""
+    from repro_torch.training import DataConfig, Syntheticcorpus, extra_inputs
+    corpus = Syntheticcorpus(DataConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=seq, global_batch=batch,
+                                        seed=seed))
+    extras = extra_inputs(cfg, batch, seed)
+    return [dict(corpus.batch(i), **extras) for i in range(n)]
+
+
+def train_card_vs_cpu(torch, rt, arch, moe_impl, B, S):
+    """One ``loss_fn`` and its gradients at full width cut to 2 layers,
+    float32, on the card and on the CPU, from the same weights and batch:
+    the loss within ``TRAIN_LOSS_REL_TOL``, every leaf's gradient within
+    ``TRAIN_GRAD_REL_L2_TOL`` relative L2.  Returns the largest errors."""
+    from repro_torch.training.train import loss_and_grads, to_device
+    cfg = rt.get_config(arch).replace(n_layers=2, dtype="float32")
+    model = rt.build_model(cfg, moe_impl=moe_impl)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = train_batches(cfg, B, S, 1)[0]
+    t0 = time.perf_counter()
+    card_loss, card_g = loss_and_grads(model, to_f32(params, "cuda"),
+                                       to_device(batch, "cuda"))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu_loss, cpu_g = loss_and_grads(model, params, to_device(batch, "cpu"))
+    t2 = time.perf_counter()
+    loss_rel = abs(card_loss.item() - cpu_loss.item()) / abs(cpu_loss.item())
+    worst, worst_path = 0.0, ""
+    for (path, _), g_card, g_cpu in zip(train_leaves(params), card_g,
+                                        cpu_g):
+        g_card = g_card.cpu()
+        check(bool(torch.isfinite(g_card).all()),
+              f"train {arch}: gradient of {path} not finite on the card")
+        rel = ((g_card - g_cpu).norm() / g_cpu.norm().clamp(min=1e-30)).item()
+        if rel > worst:
+            worst, worst_path = rel, path
+    tag = f"{arch}" + (f" moe_impl={moe_impl}" if cfg.n_experts else "")
+    print(f"[train] card vs CPU, f32, 2 layers, {tag}, B={B} S={S}"
+          f"{' + ' + str(cfg.n_image_tokens) + ' image tokens' if cfg.family == 'vlm' else ''}"
+          f": loss {card_loss.item():.6f} vs {cpu_loss.item():.6f} (rel "
+          f"{loss_rel:.3e}, tol {TRAIN_LOSS_REL_TOL}); {len(card_g)} "
+          f"gradient leaves, largest rel L2 {worst:.3e} ({worst_path}; tol "
+          f"{TRAIN_GRAD_REL_L2_TOL}); card {t1 - t0:.2f} s, CPU "
+          f"{t2 - t1:.2f} s")
+    check(loss_rel <= TRAIN_LOSS_REL_TOL,
+          f"train {tag}: card loss differs from the CPU's by {loss_rel:.3e}")
+    check(worst <= TRAIN_GRAD_REL_L2_TOL,
+          f"train {tag}: gradient of {worst_path} differs from the CPU's "
+          f"by {worst:.3e} relative L2")
+    return loss_rel, worst
+
+
+def train_run(torch, model, params, batches, opt):
+    """The train step over ``batches`` (the step of ``train``), each step
+    ending in a synchronise.  Returns the losses and step times (s)."""
+    from repro_torch.training import make_train_step
+    from repro_torch.training.train import to_device
+    step_fn = make_train_step(model, opt)
+    state = opt.init(params)
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state,
+                                         to_device(batch, "cuda"))
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        check(np.isfinite(loss), f"train: loss {loss} at step "
+              f"{len(losses) - 1} is not finite")
+    del state
+    return losses, times
+
+
+def step_stats(times, tokens, n_params=None):
+    """Median and p90 step time over steps 5.. (ms), tokens/s at the
+    median, and the model-FLOPs share (6 * params * tokens / step time
+    over the card's dense bf16 peak) where ``n_params`` is given."""
+    t = np.asarray(times[5:]) * 1e3
+    p50, p90 = float(np.median(t)), float(np.percentile(t, 90))
+    out = (f"step p50 {p50:.2f} ms, p90 {p90:.2f} ms (steps 5-"
+           f"{len(times) - 1}), {tokens / p50 * 1e3:.0f} tokens/s")
+    if n_params:
+        mfu = 6 * n_params * tokens / (p50 * 1e-3) / BF16_FLOP_PER_S
+        out += (f", model-FLOPs share {mfu:.4f} (6 x {n_params:.4g} params "
+                f"x {tokens} tokens over {BF16_FLOP_PER_S:.3g} flop/s)")
+    return out
+
+
+def phase_train(torch, rt, counters, timer, flash_ops, flash_ref, card):
+    """Training on the card (ROADMAP A14, first half): card float32 against
+    the CPU on one loss and its gradients; qwen3-0.6b trained at full
+    width in bf16 (30 steps of 8 x 512, then one step's loss under
+    ``remat``); B2 at a training shape (``attention_impl="pallas"`` under
+    no_grad, and refused under autograd); granite-moe-1b-a400m trained at
+    full width with the capacity dispatch; the launcher and its
+    checkpoint.  Returns B2's launches in the no_grad forward."""
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import moe
+    from repro_torch.training import AdamW, checkpoint, cosine_schedule
+    from repro_torch.training.train import loss_and_grads, to_device
+
+    t_phase = time.perf_counter()
+    print(f"[train] card {card}; float32 matmul TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "train: float32 matmuls would run in TF32")
+    # 1. card float32 vs CPU float32, full width cut to 2 layers
+    for arch, impl, B, S in (("qwen3-0.6b", "einsum", 2, 128),
+                             ("granite-moe-1b-a400m", "einsum", 2, 128),
+                             ("granite-moe-1b-a400m", "gather", 2, 128),
+                             ("phi-3-vision-4.2b", "einsum", 1, 64)):
+        train_card_vs_cpu(torch, rt, arch, impl, B, S)
+        torch.cuda.empty_cache()
+    print(f"[time] train: card vs CPU done, "
+          f"{time.perf_counter() - t_phase:.1f} s into the phase")
+
+    # 2. qwen3-0.6b at full width, bf16, 28 layers
+    cfg = rt.get_config("qwen3-0.6b")
+    model = rt.build_model(cfg)
+    B, S, steps = 8, 512, 30
+    t0 = time.perf_counter()
+    batches = train_batches(cfg, B, S, steps)
+    print(f"[train] qwen3-0.6b: {steps} batches of {B} x {S} drawn on the "
+          f"host in {time.perf_counter() - t0:.1f} s")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    opt = AdamW(learning_rate=cosine_schedule(1e-3, 5, steps))
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = train_run(torch, model, params, batches, opt)
+    peak = torch.cuda.max_memory_allocated()
+    last5 = float(np.mean(losses[-5:]))
+    print(f"[train] qwen3-0.6b full width bf16, {cfg.n_layers} layers, "
+          f"B={B} S={S}, lr 1e-3 (warmup 5, cosine): losses "
+          f"{' '.join(f'{x:.3f}' for x in losses)}")
+    print(f"[train] qwen3-0.6b: first {losses[0]:.4f} (ln V = "
+          f"{np.log(cfg.vocab_size):.4f}), mean of the last 5 {last5:.4f} "
+          f"(drop {losses[0] - last5:.4f} nats); "
+          f"{step_stats(times, B * S, QWEN3_PARAMS)}; "
+          f"max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB); "
+          f"card {card}")
+    check(last5 <= losses[0] - 1.0,
+          f"train: qwen3-0.6b's loss fell {losses[0] - last5:.3f} nats, "
+          f"less than 1.0")
+    batch = to_device(batches[-1], "cuda")
+    peaks = {}
+    for remat in (False, True):
+        m = rt.build_model(cfg, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(m, params, batch)
+        torch.cuda.synchronize()
+        peaks[remat] = (loss.item(), torch.cuda.max_memory_allocated(),
+                        time.perf_counter() - t0)
+        del grads
+    (l0, m0, s0), (l1, m1, s1) = peaks[False], peaks[True]
+    print(f"[train] qwen3-0.6b loss and gradients on the trained params "
+          f"and the last batch: remat=False loss {l0:.5f}, peak {m0} bytes "
+          f"({m0 / 2**30:.2f} GiB), {s0 * 1e3:.1f} ms; remat=True loss "
+          f"{l1:.5f} (rel {abs(l1 - l0) / abs(l0):.3e}, tol 1e-2), peak {m1} "
+          f"bytes ({m1 / 2**30:.2f} GiB), {s1 * 1e3:.1f} ms")
+    check(abs(l1 - l0) <= 1e-2 * abs(l0),
+          "train: the remat loss differs from the plain loss")
+
+    # 5. B2 at a training shape: the forward under no_grad, B=2, S=512
+    fb = to_device({"tokens": batches[0]["tokens"][:2]}, "cuda")
+    flash_model = rt.build_model(cfg, attention_impl="pallas")
+    with torch.no_grad():
+        want = model.forward(params, fb)[0].float()
+        counters["flash_attention_bhsd"].launches = 0
+        got = flash_model.forward(params, fb)[0].float()
+        torch.cuda.synchronize()
+        b2 = counters["flash_attention_bhsd"].launches
+    rel = ((got - want).norm() / want.norm()).item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    print(f"[train] B2 in the training forward (attention_impl='pallas', "
+          f"no_grad, B=2, S=512, bf16): {b2} launches (one a layer), logits "
+          f"rel L2 vs 'xla' {rel:.3e} (tol 2e-2), argmax agreement "
+          f"{agree:.4f}")
+    check(b2 == cfg.n_layers,
+          f"train: B2 launched {b2} times in a {cfg.n_layers}-layer forward")
+    check(rel <= 2e-2, "train: the B2 forward's logits differ from 'xla'")
+    try:
+        loss_and_grads(flash_model, params,
+                       to_device({k: v[:2] for k, v in batches[0].items()},
+                                 "cuda"))
+        check(False, "train: B2 ran under autograd")
+    except RuntimeError as e:
+        check("flash_attention_bhsd" in str(e), f"train: {e}")
+        print(f"[train] B2 under autograd refused: {str(e)[:72]}...")
+    flash_rows(torch, timer, flash_ops, flash_ref, "train",
+               2 * cfg.n_heads, cfg.head_dim_, 33, [(S, None, True)])
+    del params, batches, batch, flash_model, model, got, want
+    torch.cuda.empty_cache()
+    print(f"[time] train: qwen3 done, {time.perf_counter() - t_phase:.1f} s "
+          f"into the phase")
+
+    # 3. granite-moe-1b-a400m at full width, capacity einsum dispatch
+    cfg = rt.get_config("granite-moe-1b-a400m")
+    model = rt.build_model(cfg, moe_impl="einsum")
+    B, S, steps = 4, 512, 15
+    batches = train_batches(cfg, B, S, steps)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    first = to_device(batches[0], "cuda")
+    with torch.no_grad():
+        aux0 = model.forward(params, first)[1].item()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = train_run(torch, model, params, batches,
+                              AdamW(learning_rate=cosine_schedule(
+                                  1e-3, 5, steps)))
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        aux1 = model.forward(params, first)[1].item()
+    last3 = float(np.mean(losses[-3:]))
+    print(f"[train] granite-moe-1b-a400m full width bf16, {cfg.n_layers} "
+          f"layers, capacity dispatch 'einsum' (G = {min(2048, B * S)}, C = "
+          f"{moe._capacity(min(2048, B * S), cfg)}), B={B} S={S}: losses "
+          f"{' '.join(f'{x:.3f}' for x in losses)}; first {losses[0]:.4f}, "
+          f"mean of the last 3 {last3:.4f}; aux loss {aux0:.4f} -> "
+          f"{aux1:.4f} (batch 0); {step_stats(times, B * S)}; "
+          f"max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB); "
+          f"card {card}")
+    check(last3 < losses[0], "train: granite's loss did not fall")
+    del params, batches, first, model
+    torch.cuda.empty_cache()
+
+    # 4. the launcher in process, and its checkpoint restored onto the card
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "qwen3.ckpt")
+        t0 = time.perf_counter()
+        trained = launch_train.main(["--arch", "qwen3-0.6b", "--steps", "4",
+                                     "--batch", "4", "--seq", "256",
+                                     "--log-every", "1", "--ckpt", path])
+        t1 = time.perf_counter()
+        with open(path, "rb") as f:
+            magic = f.read(4)
+        back = checkpoint.restore(path, trained, device="cuda")
+        t2 = time.perf_counter()
+        n = 0
+        for (p, a), (_, b) in zip(train_leaves(trained), train_leaves(back)):
+            check(a.dtype == b.dtype and b.is_cuda and torch.equal(a, b),
+                  f"train: checkpoint leaf {p} differs after restore")
+            n += 1
+        print(f"[train] launcher: 4 steps and a {magic.decode()} checkpoint "
+              f"of {Path(path).stat().st_size} bytes in {t1 - t0:.1f} s; "
+              f"restored onto the card in {t2 - t1:.1f} s, {n} leaves equal "
+              f"bit for bit")
+    del trained, back
+    torch.cuda.empty_cache()
+    print(f"[time] train: phase {time.perf_counter() - t_phase:.1f} s")
+    return b2
+
+
 def main() -> int:
     import torch
 
@@ -3787,6 +4068,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_variants(torch, rt, counters, timer, paged_ops, paged_ref,
                        flash_ops, flash_ref)
+        print(f"[time] variants done at {time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
+        phase_train(torch, rt, counters, timer, flash_ops, flash_ref, card)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_autograd
 from .ref import flash_attention_bhsd_ref
 
 MAX_HEAD_DIM = 256        # the kernel's shared-memory tiles are sized for it
@@ -54,6 +54,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k and v must share one type, bf16 or f32")
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
+    refuse_autograd("flash_attention_bhsd", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_bhsd_ref(q, k, v, causal=causal,
                                         window=window, scale=scale)

@@ -13,7 +13,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_autograd
 from .ref import moe_ffn_ref
 
 _SMEM_LIMIT = 232_448     # bytes of shared memory a block may use (H100)
@@ -78,6 +78,7 @@ def moe_ffn(xe: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
             t.dtype != xe.dtype for t in (w_gate, w_up, w_down)):
         raise ValueError("xe and the weights must share one type, bf16 or "
                          "f32")
+    refuse_autograd("moe_ffn", xe, w_gate, w_up, w_down)
     if xe.device.type == "cpu":
         return moe_ffn_ref(xe, w_gate, w_up, w_down)
     if xe.device.type != "cuda":

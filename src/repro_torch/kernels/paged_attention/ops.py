@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_autograd
 from .ref import decode_ring_ref, paged_decode_chunk_ref, paged_decode_ref
 
 _SMEM_LIMIT = 232_448     # bytes of shared memory a block may use (H100)
@@ -145,6 +145,7 @@ def paged_decode_chunk(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("q and pages must share one type, bf16 or f32")
     if page_table.dtype != torch.int32 or pos.dtype != torch.int32:
         raise ValueError("page_table and pos must be int32")
+    refuse_autograd("paged_decode_chunk", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_decode_chunk_ref(q, k_pages, v_pages, page_table, pos,
                                       scale=scale, n_rep=n_rep)
@@ -240,6 +241,7 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("q and pages must share one type, bf16 or f32")
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError("page_table and lengths must be int32")
+    refuse_autograd("paged_decode", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_decode_ref(q, k_pages, v_pages, page_table, lengths,
                                 scale=scale, n_rep=n_rep)
@@ -347,6 +349,7 @@ def decode_attention_kernel(q: torch.Tensor, cache_k: torch.Tensor,
         raise ValueError("pos must be int32")
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
+    refuse_autograd("decode_attention_kernel", q, cache_k, cache_v)
     if q.device.type == "cpu":
         return decode_ring_ref(q, cache_k, cache_v, pos, scale=scale,
                                n_rep=n_rep, window=window)

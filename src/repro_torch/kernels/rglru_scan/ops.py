@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_autograd
 from .ref import rglru_scan_ref
 
 _MAX_BATCH = 65_535       # the grid's second dimension
@@ -53,6 +53,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, a on {a.device}")
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
+    refuse_autograd("rglru_scan", a, b, h0)
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
     if a.device.type != "cuda":

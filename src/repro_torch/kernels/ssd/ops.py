@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_autograd
 from .ref import ssd_chunked_ref
 
 SSD_HEAD_DIM_MULTIPLE = 16   # the state product's 16-row tiles of P
@@ -94,6 +94,7 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("Bm and Cm must have a unit inner stride")
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
+    refuse_autograd("ssd_chunk_scan", x, dt, A, Bm, Cm, init_state)
     if x.device.type == "cpu":
         return ssd_chunked_ref(x, dt, A, Bm, Cm, chunk, init_state)
     if x.device.type != "cuda":

@@ -1,2 +1,2 @@
 """Launchers of the port: ``serve`` is the OpenAI-compatible HTTP front end
-over an engine pool."""
+over an engine pool, ``train`` the training loop on one device."""

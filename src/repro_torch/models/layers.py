@@ -1,8 +1,10 @@
 """Shared model building blocks (PyTorch, nested-dict params).
 
-The port of the JAX package's ``models/layers.py`` for serving: norms (rms
-and layer), RoPE (partial with ``rope_pct``), attention, the swiglu and
-gelu MLPs.
+The port of the JAX package's ``models/layers.py``: norms (rms and layer),
+RoPE (partial with ``rope_pct``), attention, the swiglu and gelu MLPs, the
+tied unembedding with the reference's backward, and the training
+forward's ``attention_block`` over ``sdpa`` or ``chunked_sdpa`` (plain
+PyTorch, differentiable).
 Layouts match the reference at every public function: activations
 [B, S, D], q [B, S, H, Dh], k/v [B, S, Hkv, Dh], KV pages
 [n_pages, P, Hkv, Dh].  Activations flow in ``cfg.torch_dtype``; norms and
@@ -126,6 +128,28 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
+def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool, window: Optional[int], scale: float,
+                 q_chunk: int = 512) -> torch.Tensor:
+    """:func:`sdpa` over query chunks of ``q_chunk`` rows, so that only a
+    [B, H, q_chunk, Skv] score block is live at a time (the reference's
+    memory-efficient attention of its production train shapes)."""
+    S, Skv = q.shape[1], k.shape[1]
+    c = min(q_chunk, S)
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    outs = []
+    for q0 in range(0, S, c):
+        qpos = torch.arange(q0, min(q0 + c, S), device=q.device)[:, None]
+        m = torch.ones((qpos.shape[0], Skv), dtype=torch.bool,
+                       device=q.device)
+        if causal:
+            m = m & (kpos <= qpos)
+        if window is not None:
+            m = m & (kpos > qpos - window)
+        outs.append(sdpa(q[:, q0:q0 + c], k, v, m, scale))
+    return torch.cat(outs, dim=1)
+
+
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool, window: Optional[int],
                    scale: float) -> torch.Tensor:
@@ -148,6 +172,32 @@ def attention_qkv(x: torch.Tensor, p: dict, cfg: ModelConfig,
     q = apply_rope(q, positions, cfg)
     k = apply_rope(k, positions, cfg)
     return q, k, v
+
+
+def attention_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                    positions: torch.Tensor, window: Optional[int] = None,
+                    attention_impl: str = "xla") -> torch.Tensor:
+    """Full (training) self-attention over x [B,S,D]: ``"xla"`` is
+    :func:`sdpa` under the causal mask, ``"xla_chunked"``
+    :func:`chunked_sdpa`, both differentiable; ``"pallas"`` is the flash
+    kernel (B2 on the card, forward only: under autograd its wrapper
+    raises)."""
+    S = x.shape[1]
+    q, k, v = attention_qkv(x, p, cfg, positions)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    scale = cfg.head_dim_ ** -0.5
+    k, v = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+    if attention_impl == "pallas":
+        out = flash_attention(q, k, v, causal=True, window=window,
+                              scale=scale)
+    elif attention_impl == "xla_chunked":
+        out = chunked_sdpa(q, k, v, causal=True, window=window, scale=scale)
+    elif attention_impl == "xla":
+        out = sdpa(q, k, v, causal_mask(S, S, 0, window, device=x.device),
+                   scale)
+    else:
+        raise ValueError(f"unknown attention_impl {attention_impl!r}")
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 # ------------------------------------------------------------ decode utils
@@ -337,7 +387,28 @@ def embed(tokens: torch.Tensor, p: dict) -> torch.Tensor:
     return p["tok"][tokens]
 
 
+class _TiedUnembed(torch.autograd.Function):
+    """``x @ w.T`` with the reference's backward (its ``custom_vjp``):
+    dx = g @ w in x's type and dw = g^T x in w's type."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        return torch.einsum("...d,vd->...v", x, w)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        dx = torch.einsum("...v,vd->...d", g, w).to(x.dtype)
+        dw = torch.einsum("...v,...d->vd", g, x).to(w.dtype)
+        return dx, dw
+
+
+def _tied_unembed(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return _TiedUnembed.apply(x, w)
+
+
 def unembed(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return torch.einsum("...d,vd->...v", x, p["tok"])
+        return _tied_unembed(x, p["tok"])
     return x @ p["out"]

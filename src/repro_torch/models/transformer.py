@@ -1,10 +1,13 @@
 """Decoder-only transformer (the dense qwen3 / stablelm-2 / starcoder2
-family, the MoE families and the VLM backbone), serving entry points.
+family, the MoE families and the VLM backbone).
 
-The port of the JAX package's ``models/transformer.py`` for serving:
-``init_params``, the monolithic ``prefill``, the paged-native
-``decode_chunk_paged``, and the dense slot-cache plane (``init_cache``,
-``decode_step``, ``decode_chunk``), sliding-window rings included.
+The port of the JAX package's ``models/transformer.py``: ``init_params``;
+the training ``forward`` (plain PyTorch attention and the MoE's capacity
+dispatch, differentiable, with the MoE aux loss and per-layer
+recomputation under ``remat``); and the serving entry points, the
+monolithic ``prefill``, the paged-native ``decode_chunk_paged``, and the
+dense slot-cache plane (``init_cache``, ``decode_step``,
+``decode_chunk``), sliding-window rings included.
 Parameters keep the reference's tree and its leading layer dimension L;
 each layer is a loop iteration over views of those stacked tensors
 (PyTorch runs eagerly, so there is no scan).  ``decode_step`` and
@@ -18,6 +21,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
@@ -127,17 +131,73 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
-def _ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
-    """FFN sub-block: the dropless MoE (its aux loss and expert counts are
-    training telemetry, which serving drops) or the dense MLP."""
+def _layers(tree: dict):
+    """The per-layer parameter trees of the layer-stacked tree, each leaf
+    taken apart once with ``torch.unbind``, whose backward is one
+    ``stack`` (indexing ``v[i]`` under autograd would give each layer's
+    backward a zero tensor the size of the whole stack)."""
+    parts = {k: _layers(v) if isinstance(v, dict) else torch.unbind(v, 0)
+             for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _ffn(x: torch.Tensor, lp: dict, cfg: ModelConfig,
+         moe_impl: str = "dropless") -> Tuple[torch.Tensor, torch.Tensor]:
+    """FFN sub-block: the MoE or the dense MLP.  Returns (y, aux loss)."""
     if cfg.n_experts > 0:
-        return M.moe_block(x, lp["mlp"], cfg, impl="dropless")[0]
-    return L.mlp_block(x, lp["mlp"], cfg)
+        y, aux, _counts = M.moe_block(x, lp["mlp"], cfg, impl=moe_impl)
+        return y, aux
+    return L.mlp_block(x, lp["mlp"], cfg), x.new_zeros((), dtype=torch.float32)
 
 
 def _mlp_residual(x: torch.Tensor, lp: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Serving's FFN residual, through the dropless MoE (its aux loss and
+    expert counts are training telemetry, which serving drops)."""
     h = L.apply_norm(x, lp["mlp_norm"], cfg)
-    return x + _ffn(h, lp, cfg)
+    return x + _ffn(h, lp, cfg)[0]
+
+
+def _block(x: torch.Tensor, p: dict, cfg: ModelConfig,
+           positions: torch.Tensor, attention_impl: str,
+           moe_impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One training layer: -> (x, the layer's MoE aux loss)."""
+    h = L.apply_norm(x, p["attn_norm"], cfg)
+    x = x + L.attention_block(h, p["attn"], cfg, positions,
+                              window=cfg.sliding_window,
+                              attention_impl=attention_impl)
+    h = L.apply_norm(x, p["mlp_norm"], cfg)
+    y, aux = _ffn(h, p, cfg, moe_impl)
+    return x + y, aux
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+            inputs_embeds: Optional[torch.Tensor] = None,
+            attention_impl: str = "xla", moe_impl: str = "einsum",
+            return_aux: bool = False, remat: bool = False,
+            unembed: bool = True):
+    """Training forward over tokens [B,S] (or ``inputs_embeds`` [B,S,D]).
+    Returns logits [B,S,V], or with ``unembed=False`` the final hidden
+    states [B,S,D]; with ``return_aux`` also the MoE aux loss, the mean
+    over layers.  ``remat=True`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
+    per layer does."""
+    x = (inputs_embeds if inputs_embeds is not None
+         else L.embed(tokens, params["embed"])).to(cfg.torch_dtype)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = x.new_zeros((), dtype=torch.float32)
+    for lp in _layers(params["layers"]):
+        if remat:
+            x, a = checkpoint(_block, x, lp, cfg, positions, attention_impl,
+                              moe_impl, use_reentrant=False)
+        else:
+            x, a = _block(x, lp, cfg, positions, attention_impl, moe_impl)
+        aux = aux + a
+    x = L.apply_norm(x, params["final_norm"], cfg)
+    out = L.unembed(x, params["embed"], cfg) if unembed else x
+    if return_aux:
+        return out, aux / max(cfg.n_layers, 1)
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,

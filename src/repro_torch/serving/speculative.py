@@ -128,12 +128,45 @@ class DraftEngine:
         return props
 
 
-def distill_draft(*args, **kwargs):
-    """Distilling a draft toward the target needs the model's training
-    ``forward`` and an optimizer, which the port does not have yet."""
-    raise NotImplementedError(
-        "distill_draft needs forward and an optimizer, which are not "
-        "ported yet (ROADMAP.md A14)")
+def distill_draft(draft, dparams, target, tparams, data_fn, *,
+                  steps: int = 250, lr: float = 3e-3, seed: int = 0):
+    """Distill ``draft`` toward the target's greedy decisions: minimize
+    cross-entropy between the draft's logits and ``argmax`` of the
+    target's, over contexts drawn from ``data_fn(generator) -> [B, S]``
+    integer tokens (a ``torch.Generator`` seeded with ``seed``, in place of
+    the reference's JAX key; use the serving distribution: acceptance is
+    an on-policy property).  This is the "distilled shadow" draft: unlike
+    :func:`truncated_draft` alone it tracks what the target *does*, not
+    just what its early layers compute.  AdamW at a constant ``lr``, no
+    weight decay.  ``dparams`` is copied first (a truncated draft's layers
+    are views of the target's), and the returned params hold no
+    ``requires_grad``, so ``DraftEngine`` serves them through the
+    kernels."""
+    from ..training.optimizer import AdamW, constant_schedule
+    from ..training.tree import tree_leaves, tree_map, tree_unflatten
+
+    dev = tree_leaves(tparams)[0].device
+    dparams = tree_map(lambda p: p.detach().clone(), dparams)
+    opt = AdamW(learning_rate=constant_schedule(lr), weight_decay=0.0)
+    state = opt.init(dparams)
+    gen = torch.Generator().manual_seed(seed)
+    for _ in range(steps):
+        toks = torch.as_tensor(data_fn(gen)).long().to(dev)
+        with torch.no_grad():
+            labels = torch.argmax(_logits(target, tparams, toks), dim=-1)
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(dparams)]
+        with torch.enable_grad():
+            lp = torch.log_softmax(
+                _logits(draft, tree_unflatten(dparams, leaves), toks).float(),
+                dim=-1)
+            loss = -torch.mean(torch.gather(lp, -1, labels[..., None]))
+            grads = torch.autograd.grad(loss, leaves)
+        dparams, state = opt.update(list(grads), state, dparams)
+    return dparams
+
+
+def _logits(model, params, toks):
+    return model.forward(params, {"tokens": toks})[0]
 
 
 def truncated_draft(model, params, n_layers: int):

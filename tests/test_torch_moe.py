@@ -180,8 +180,14 @@ def test_moe_block_dropless_matches(arch):
     np.testing.assert_allclose(taux.item(), float(jaux), **ROUTE_TOL)
     assert tcounts.dtype == torch.int32
     np.testing.assert_array_equal(tcounts.numpy(), np.asarray(jcounts))
-    with pytest.raises(NotImplementedError, match="A14"):
-        TM.moe_block(torch.from_numpy(x), tp, tcfg, impl="einsum")
+    # the capacity dispatch (training's default impl) is ported too
+    jy, jaux, jcounts = JM.moe_block(jnp.asarray(x), jp, jcfg,
+                                     impl="einsum")
+    ty, taux, tcounts = TM.moe_block(torch.from_numpy(x), tp, tcfg,
+                                     impl="einsum")
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **ROUTE_TOL)
+    np.testing.assert_allclose(taux.item(), float(jaux), **ROUTE_TOL)
+    np.testing.assert_array_equal(tcounts.numpy(), np.asarray(jcounts))
 
 
 def test_params_from_numpy_keeps_the_f32_router_of_a_bf16_model():
